@@ -3,35 +3,55 @@
     python3 chip_smoke.py
 
 Builds the kernel library (the SA search kernel and the start-up
-kernel) from cuda_satabsearch_tpu_torch/csrc/ with nvcc, holds each
-kernel against its plain PyTorch version on the card, drives the port's
-main path (the ``torchsatabsearch`` CLI) on the 586-entry fixture DB,
-and times a 14291-entry ASTRAL-like synthetic DB.  Phases:
+kernel) from cuda_satabsearch_tpu_torch/csrc/ with nvcc, one process per
+source, while the native DB loader (native/satab_io.cpp) builds with
+g++; holds each kernel against its plain PyTorch version on the card,
+drives the port's main paths (the ``torchsatabsearch`` CLI, the
+acceptance gate, the sharded search) on the 586-entry fixture DB, and
+times a 14291-entry ASTRAL-like synthetic DB.  Phases:
 
-0. start-up kernel vs x + 1 on f32[8, 128]: bitwise, and both timed;
-1. SA kernel vs plain engine on a supplied stream: bitwise scores and maps;
+0. start-up kernel vs x + 1 on f32[8, 128] and on an odd size: bitwise,
+   both timed per call (CUDA events over a loop) and device-only
+   (torch.profiler);
+1. SA kernel vs plain engine on a supplied stream: bitwise scores and
+   maps, including c_par 128 x r_seq 32 (the r = 4096 split);
 2. kernel's in-kernel threefry stream vs the plain engine on the stream
-   ops/rng.py makes on the card: bitwise;
+   ops/rng.py makes on the card: bitwise, the same cases;
 3. CLI main path, d1ubia_ query vs the 586-entry DB at r=128: the
    reference's top 3, scores equal to the plain engine's on the card,
    and both kernels' launch counters show the path ran through them;
 4. multiquery.input (8/13/101-SSE queries): batched search_many equals
    per-query search, bitwise;
 5. timings: kernel vs plain on the 586-entry DB, and the 14291-entry
-   synthetic DB per query and batched.
+   synthetic DB per query and batched;
+6. native DB loader vs Python parse + pack, bitwise, on the 586-entry
+   fixture and on the synthetic DB written by io/writer.py, both timed;
+7. acceptance gate: d1ubia_, d1ae6h1 and d2phlb1 at r = 128 and
+   r = 4096 on the kernel against the reference CPU oracle's outputs
+   (tests/fixtures/refgolden/), ranked by norm2; d2phlb1 at r = 4096
+   must reach auc5 >= 0.9815;
+8. sharded vs unsharded search, bitwise on scores and maps, on the mesh
+   [cuda:0, cuda:0] and on all visible devices, on both DBs, timed;
+9. the first and second search of fresh processes running the CLI on
+   d1ubia_.input, with the full start-up and with the start-up kernel
+   alone.
 
 Prints one line per phase, then a JSON line with the kernels' numbers,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
 without that line when there is no CUDA device or any phase fails.
 """
 
+import concurrent.futures
 import contextlib
+import functools
 import io
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -41,6 +61,15 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 TOP3 = {"d1c3ta_", "d2faza1", "d1uela_"}  # README_example_usage.txt:92-111
+DB586 = os.path.join(FIXTURES, "tableauxdistmatrixdb.small.ascii")
+GOLDEN = os.path.join(FIXTURES, "refgolden")
+# the acceptance queries and their SSE counts (scripts/acceptance_eval.py:37)
+GATE_QUERIES = {"d1ubia_": 8, "d1ae6h1": 13, "d2phlb1": 19}
+# the reference's own GPU-vs-CPU auc5 on d2phlb1 at r = 4096, from its
+# archived 2012 run logs (ACCEPTANCE.md:20); the gate is within 0.01 of
+# it (BASELINE.md's "within 1%" bar)
+REF_GPU_AUC5 = 0.9915
+GATE_AUC5 = REF_GPU_AUC5 - 0.01
 
 
 def say(*a):
@@ -72,6 +101,7 @@ def random_entry(rng, n, name):
                         dmat=d)
 
 
+@functools.lru_cache(maxsize=None)
 def synthetic_entries(n):
     """ASTRAL-2.07-like SSE-count mix (median ~10, tail to 111); the
     generator of bench.py, which imports the JAX package."""
@@ -107,7 +137,9 @@ def read_query(name):
 def kernel_cases(dev):
     """Random (queries, bucket) problems at the main path's shapes:
     bucket widths d2 x query orders n1, each with two of the 32
-    combinations of LORDER, LSOLN, c_par, r_seq and K (all 32 used)."""
+    combinations of LORDER, LSOLN, c_par, r_seq and K (all 32 used),
+    then four cases at c_par 128 x r_seq 32 (the acceptance gate's
+    r = 4096) with 3 entries."""
     from cuda_satabsearch_tpu_torch.io.pack import pack_database, pack_query
     from cuda_satabsearch_tpu_torch.ops.common import round8
     from cuda_satabsearch_tpu_torch.ops.kernel_search import (
@@ -117,7 +149,12 @@ def kernel_cases(dev):
     combos = list(itertools.product((True, False), (True, False), (128, 100),
                                     (1, 2), (1, 3)))
     shapes = list(itertools.product((8, 16, 48, 112), (5, 8, 13, 19, 101)))
-    pairs = zip(shapes * 2, combos + combos[:8])
+    pairs = list(zip(shapes * 2, combos + combos[:8]))
+    # c_par 128 x r_seq 32, the split of r = 4096, at small E
+    pairs += [((16, 19), (True, False, 128, 32, 1)),
+              ((24, 19), (False, True, 128, 32, 3)),
+              ((112, 19), (True, True, 128, 32, 1)),
+              ((32, 13), (True, False, 128, 32, 3))]
     for ci, ((d2, n1), combo) in enumerate(pairs):
         lorder, lsoln, c_par, r_seq, K = combo
         n1r = round8(n1)
@@ -125,8 +162,9 @@ def kernel_cases(dev):
         queries = [pack_query(random_entry(rng, o, f"q{k}"))
                    for k, o in enumerate(orders)]
         lo = max(2, d2 - 7) if d2 > 8 else 2
+        E = 5 if r_seq < 32 else 3
         entries = [random_entry(rng, int(o), f"e{i}")
-                   for i, o in enumerate(rng.integers(lo, d2 + 1, size=5))]
+                   for i, o in enumerate(rng.integers(lo, d2 + 1, size=E))]
         bucket = prepare_bucket(
             pack_database(entries, buckets=(d2, 112) if d2 < 112 else (112,)
                           ).buckets[0], dev)
@@ -158,23 +196,58 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps):
+    """Mean device ms per call of the kernels ``fn()`` launches
+    (torch.profiler's CUDA kernel records) and their count; (None, 0)
+    where the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None, 0
+    us = sum(e.time_range.elapsed_us() for e in kernels)
+    return us / 1e3 / reps, len(kernels)
+
+
 def phase0(dev, out):
     from cuda_satabsearch_tpu_torch.core.warmup import SHAPE, add_one
 
-    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
-        SHAPE).astype(np.float32)).to(dev)
-    got = add_one(x)
-    torch.cuda.synchronize()
-    err = (got - (x + 1.0)).abs().max().item()
+    rng = np.random.default_rng(3)
+    err = 0.0
+    for shape in (SHAPE, (3, 37), (1027,)):  # odd sizes: the scalar tail
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+        got = add_one(x)
+        torch.cuda.synchronize()
+        err = max(err, (got - (x + 1.0)).abs().max().item())
+    x = torch.from_numpy(rng.standard_normal(SHAPE).astype(np.float32)).to(
+        dev)
     # plain, kernel, kernel, plain
     p1 = cuda_ms(lambda: x + 1.0, 200)
     k1 = cuda_ms(lambda: add_one(x), 200)
     k2 = cuda_ms(lambda: add_one(x), 200)
     p2 = cuda_ms(lambda: x + 1.0, 200)
     out["warm_ms"], out["warm_plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
-    say(f"phase0 start-up kernel == x + 1 on f32{list(SHAPE)} on the card: "
-        f"max |diff| {err} (tolerance 0: bitwise); kernel {k1:.5f} / "
-        f"{k2:.5f} ms, plain {p1:.5f} / {p2:.5f} ms per call (CUDA events)")
+    say(f"phase0 start-up kernel == x + 1 on f32{list(SHAPE)}, f32[3, 37] "
+        f"and f32[1027] on the card: max |diff| {err} (tolerance 0: "
+        f"bitwise); per call in a 200-call loop: kernel {k1:.5f} / "
+        f"{k2:.5f} ms, plain {p1:.5f} / {p2:.5f} ms (CUDA events)")
+    pd1, pn = device_ms(lambda: x + 1.0, 200)
+    kd1, kn = device_ms(lambda: add_one(x), 200)
+    kd2, _ = device_ms(lambda: add_one(x), 200)
+    pd2, _ = device_ms(lambda: x + 1.0, 200)
+    fmt = lambda v: "not measured" if v is None else f"{v:.5f}"
+    say(f"phase0 device-only per call (torch.profiler, 200 calls): kernel "
+        f"{fmt(kd1)} / {fmt(kd2)} ms ({kn} kernel records), plain "
+        f"{fmt(pd1)} / {fmt(pd2)} ms ({pn} kernel records)")
     if err:
         raise AssertionError(f"start-up kernel differs from x + 1 by {err}")
     return err
@@ -248,10 +321,9 @@ def phase3(dev, out):
     from cuda_satabsearch_tpu_torch.session import (SearchSession,
                                                     SessionConfig)
 
-    dbfile = os.path.join(FIXTURES, "tableauxdistmatrixdb.small.ascii")
     with open(os.path.join(FIXTURES, "d1ubia_.input")) as fp:
         body = fp.read().splitlines(keepends=True)[2:]
-    stdin = io.StringIO(f"{dbfile}\nT T F\n" + "".join(body))
+    stdin = io.StringIO(f"{DB586}\nT T F\n" + "".join(body))
     stdout, stderr = io.StringIO(), io.StringIO()
     old_stdin = sys.stdin
     sa_search.launches = add_one.launches = 0
@@ -283,7 +355,7 @@ def phase3(dev, out):
         raise AssertionError("the CLI never launched the SA kernel")
     if warm_launches < 1:
         raise AssertionError("the CLI never launched the start-up kernel")
-    plain = SearchSession(dbfile, SessionConfig(maxstart=128, backend="torch",
+    plain = SearchSession(DB586, SessionConfig(maxstart=128, backend="torch",
                                                 device=str(dev)))
     query = read_query("d1ubia_.input")[0]
     ref = plain.search(query, lorder=True, lsoln=False, query_tag=0)
@@ -299,9 +371,8 @@ def phase4(dev, out):
     from cuda_satabsearch_tpu_torch.session import (SearchSession,
                                                     SessionConfig)
 
-    dbfile = os.path.join(FIXTURES, "tableauxdistmatrixdb.small.ascii")
     queries = read_query("multiquery.input")
-    sess = SearchSession(dbfile, SessionConfig(maxstart=128, backend="cuda",
+    sess = SearchSession(DB586, SessionConfig(maxstart=128, backend="cuda",
                                                device=str(dev)))
     batched = sess.search_many(queries, lorder=True, lsoln=True)
     worst = 0
@@ -325,12 +396,12 @@ def time_buckets(fn, sess, query, reps):
 
     dev = sess.device
     q = pack_queries([query], round8(query.order), dev)
-    keys = [rng.entry_keys(1234, [0], b.index, device=dev)
-            for b in sess.device_db]
+    (buckets,) = sess.device_db  # one shard: the whole DB
+    keys = [rng.entry_keys(1234, [0], b.index, device=dev) for b in buckets]
     kw = dict(c_par=128, r_seq=1, lorder=True, lsoln=False)
 
     def run():
-        for b, k in zip(sess.device_db, keys):
+        for b, k in zip(buckets, keys):
             fn(*q, b.types, b.tab, b.dmat, b.n2, keys=k, **kw)
 
     return cuda_ms(run, reps)
@@ -343,8 +414,7 @@ def phase5(dev, out, card):
                                                     SessionConfig)
 
     query = read_query("d1ubia_.input")[0]
-    dbfile = os.path.join(FIXTURES, "tableauxdistmatrixdb.small.ascii")
-    sess = SearchSession(dbfile, SessionConfig(maxstart=128, device=str(dev)))
+    sess = SearchSession(DB586, SessionConfig(maxstart=128, device=str(dev)))
     # plain, kernel, kernel, plain
     p1 = time_buckets(search_plain, sess, query, 2)
     k1 = time_buckets(sa_search, sess, query, 20)
@@ -387,11 +457,243 @@ def phase5(dev, out, card):
         f"ms, {8 * it / wall8 / 1e6:.1f} M it/s; card {card}")
 
 
+def packed_diff(a, b) -> list[str]:
+    """The fields in which two PackedDBs differ (bitwise)."""
+    bad = [f for f in ("nentries", "names") if getattr(a, f) != getattr(b, f)]
+    if not np.array_equal(a.orders, b.orders):
+        bad.append("orders")
+    if len(a.buckets) != len(b.buckets):
+        return bad + ["buckets"]
+    for i, (x, y) in enumerate(zip(a.buckets, b.buckets)):
+        if x.dim != y.dim or x.names != y.names:
+            bad.append(f"bucket {i} dim/names")
+        for f in ("tabhi", "tablo", "types", "dmat", "orders", "index"):
+            u, v = getattr(x, f), getattr(y, f)
+            if u.dtype != v.dtype or not np.array_equal(u.view(np.uint8),
+                                                        v.view(np.uint8)):
+                bad.append(f"bucket {i} {f}")
+    return bad
+
+
+def phase6(dev, out):
+    from cuda_satabsearch_tpu_torch.io import native
+    from cuda_satabsearch_tpu_torch.io.pack import pack_database
+    from cuda_satabsearch_tpu_torch.io.parser import read_database
+    from cuda_satabsearch_tpu_torch.io.writer import format_database
+
+    native.load_library()  # built in main(); loading is not parsing
+    with tempfile.TemporaryDirectory() as tmp:
+        syn = os.path.join(tmp, "synthetic14291.ascii")
+        t0 = time.perf_counter()
+        with open(syn, "w") as fp:
+            fp.write(format_database(synthetic_entries(14291)))
+        say(f"phase6 synthetic DB written by io/writer.py in "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"({os.path.getsize(syn) / 2 ** 20:.1f} MiB)")
+        for name, path in (("586-entry fixture", DB586),
+                           ("14291-entry synthetic", syn)):
+            t0 = time.perf_counter()
+            ndb = native.pack_database_file(path)
+            t_native = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pdb = pack_database(read_database(path))
+            t_python = time.perf_counter() - t0
+            bad = packed_diff(ndb, pdb)
+            say(f"phase6 {name} DB ({ndb.nentries} entries): native pack "
+                f"== Python parse + pack: {'bitwise' if not bad else bad}; "
+                f"load native {t_native * 1e3:.1f} ms, Python "
+                f"{t_python * 1e3:.1f} ms (host clock)")
+            if bad:
+                raise AssertionError(f"native and Python packs differ: {bad}")
+
+
+def golden_scores(path) -> dict:
+    """{name: norm2} from a reference-format output file (column 2, the
+    ranking the acceptance evaluation uses; scripts/acceptance_eval.py
+    :40-54)."""
+    out = {}
+    with open(path) as fp:
+        for line in fp:
+            parts = line.split()
+            if line.startswith("#") or len(parts) != 5:
+                continue
+            try:
+                out[parts[0]] = float(parts[2])
+            except ValueError:
+                pass
+    return out
+
+
+def parity_row(sess, qname: str, golden_r: int):
+    """(ParityReport, ms) of one search of acceptance query ``qname`` on
+    ``sess`` against the oracle's output at ``golden_r`` restarts,
+    ranked by norm2 as scripts/acceptance_eval.py:108-118 ranks them."""
+    from cuda_satabsearch_tpu_torch.eval.acceptance import parity_report
+    from cuda_satabsearch_tpu_torch.stats.gumbel import norm2
+
+    query = read_query(f"{qname}.input")[0]
+    t0 = time.perf_counter()
+    res = sess.search(query, lorder=True, lsoln=False)
+    ms = (time.perf_counter() - t0) * 1e3
+    n1 = GATE_QUERIES[qname]
+    ours = {res.names[i]: norm2(int(res.scores[i]), n1, int(res.orders[i]))
+            for i in range(res.nentries)}
+    ref = golden_scores(os.path.join(GOLDEN, f"{qname}_small_r{golden_r}.out"))
+    return parity_report(ours, ref), ms
+
+
+def phase7(dev, out, card):
+    from cuda_satabsearch_tpu_torch.core.warmup import add_one
+    from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
+    from cuda_satabsearch_tpu_torch.session import (SearchSession,
+                                                    SessionConfig)
+
+    say("phase7 acceptance vs the reference CPU oracle "
+        "(tests/fixtures/refgolden/), 586-entry DB, SA kernel:")
+    say("| query | n1 | restarts | spearman | top10 | top50 | auc5 | "
+        "ms per query |")
+    say("|---|---|---|---|---|---|---|---|")
+    sa_search.launches = add_one.launches = 0
+    gate = None
+    for r in (128, 4096):
+        sess = SearchSession(DB586, SessionConfig(maxstart=r, backend="cuda",
+                                                  device=str(dev)))
+        for qname, n1 in GATE_QUERIES.items():
+            rep, ms = parity_row(sess, qname, r)
+            say(f"| {qname} | {n1} | {r} | {rep.spearman:.4f} | "
+                f"{rep.top10:.2f} | {rep.top50:.2f} | {rep.auc5:.4f} | "
+                f"{ms:.3f} |")
+            if (qname, r) == ("d2phlb1", 4096):
+                gate, out["gate_ms"] = rep.auc5, ms
+    launches, warm = sa_search.launches, add_one.launches
+    say(f"phase7 gate: d2phlb1 r=4096 auc5 {gate:.4f}, bar >= "
+        f"{GATE_AUC5:.4f} (the reference GPU's {REF_GPU_AUC5} - 0.01); "
+        f"{launches} SA kernel and {warm} start-up kernel launches; "
+        f"card {card}")
+    if launches < 1 or warm < 1:
+        raise AssertionError("the acceptance path did not run the kernels")
+    if gate < GATE_AUC5:
+        raise AssertionError(f"d2phlb1 r=4096 auc5 {gate:.4f} < {GATE_AUC5}")
+
+
+def search_wall_ms(sess, query, reps=3):
+    """Best wall ms of ``reps`` synchronised searches (results drained)."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sess.search(query, lsoln=True, query_tag=0)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return min(walls)
+
+
+def phase8(dev, out, card):
+    from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
+    from cuda_satabsearch_tpu_torch.session import (SearchSession,
+                                                    SessionConfig)
+
+    n = torch.cuda.device_count()
+    meshes = {"[cuda:0, cuda:0]": [dev, dev],
+              f"all {n} visible devices": [torch.device("cuda", i)
+                                           for i in range(n)]}
+    say(f"phase8 visible CUDA devices: {n}")
+    query = read_query("d1ubia_.input")[0]
+    for dbname, dbfile, entries in (
+            ("586-entry", DB586, None),
+            ("14291-entry synthetic", "<synthetic>",
+             synthetic_entries(14291))):
+        ref_sess = SearchSession(dbfile, SessionConfig(
+            maxstart=128, device=str(dev)), entries=entries)
+        ref = ref_sess.search(query, lsoln=True, query_tag=0)
+        ref_ms = search_wall_ms(ref_sess, query)
+        del ref_sess
+        for mname, mesh in meshes.items():
+            sess = SearchSession(dbfile, SessionConfig(
+                maxstart=128, use_mesh=True, devices=mesh), entries=entries)
+            sa_search.launches = 0
+            got = sess.search(query, lsoln=True, query_tag=0)
+            launches = sa_search.launches
+            ms = search_wall_ms(sess, query)
+            err = max(int(np.abs(got.scores - ref.scores).max()),
+                      int(np.abs(got.ssemaps - ref.ssemaps).max()))
+            say(f"phase8 {dbname} DB, mesh {mname}: sharded == unsharded "
+                f"max |diff| {err} on scores and maps (tolerance 0); "
+                f"{launches} SA kernel launches; per query (LSOLN, r=128, "
+                f"best of 3, wall): sharded {ms:.3f} ms, unsharded "
+                f"{ref_ms:.3f} ms; card {card}")
+            if err:
+                raise AssertionError(f"sharded search differs on {mname}")
+            if launches < len(mesh):
+                raise AssertionError("the sharded path did not launch the "
+                                     "SA kernel on every shard")
+            del sess
+
+
+FRESH = r"""
+import contextlib, io, json, re, sys, time
+import torch
+from cuda_satabsearch_tpu_torch import cli, session
+from cuda_satabsearch_tpu_torch.core.warmup import SHAPE, add_one
+
+if sys.argv[1] == "start-up kernel alone":
+    def warm(dev, log=True):
+        t0 = time.perf_counter()
+        ok = bool((add_one(torch.zeros(SHAPE, device=dev)) == 1.0).all())
+        dt = time.perf_counter() - t0
+        print(f"# start-up on {dev}: start-up kernel alone "
+              f"{dt * 1e3:.1f} ms", file=sys.stderr)
+        return dt
+    session.warm_backend = warm
+text = sys.stdin.read()
+runs = []
+for _ in range(2):
+    err = io.StringIO()
+    sys.stdin = io.StringIO(text)
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main(["-r", "128"])
+    lines = err.getvalue().splitlines()
+    runs.append(dict(rc=rc, startup=[l for l in lines
+                                     if l.startswith("# start-up")],
+                     search_ms=[float(m.group(1)) for m in (
+                         re.search(r"search time ([0-9.]+) ms", l)
+                         for l in lines) if m]))
+print(json.dumps(runs))
+"""
+
+
+def phase9(dev, out, card):
+    with open(os.path.join(FIXTURES, "d1ubia_.input")) as fp:
+        text = fp.read()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for variant in ("full start-up", "start-up kernel alone"):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", FRESH, variant],
+                             input=text, capture_output=True, text=True,
+                             cwd=FIXTURES, env=env, timeout=300)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"fresh process failed: {res.stderr}")
+        runs = json.loads(res.stdout.strip().splitlines()[-1])
+        for i, run in enumerate(runs):
+            if run["rc"] != 0 or len(run["search_ms"]) != 1:
+                raise AssertionError(f"CLI call {i} in a fresh process: "
+                                     f"{run}")
+        out.setdefault("fresh", {})[variant] = [
+            r["search_ms"][0] for r in runs]
+        say(f"phase9 fresh process, {variant}, two CLI calls on "
+            f"d1ubia_.input -r 128: first search "
+            f"{runs[0]['search_ms'][0]:.3f} ms, second "
+            f"{runs[1]['search_ms'][0]:.3f} ms; start-up lines "
+            f"{[r['startup'] for r in runs]}; process wall {wall:.1f} s; "
+            f"card {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    from cuda_satabsearch_tpu_torch.io import native
     from cuda_satabsearch_tpu_torch.ops.sa_kernel import (find_nvcc,
                                                           load_library)
 
@@ -403,9 +705,16 @@ def main() -> int:
     nvcc = subprocess.run([find_nvcc(), "--version"], capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()
     say(f"nvcc: {nvcc[-1] if nvcc else 'unknown'}")
-    lib = load_library()
-    say(f"kernel built in {lib.build_s:.1f} s -> "
-        f"{os.path.relpath(lib.path, ROOT)}")
+    # the native loader's g++ build runs beside the kernels' nvcc builds
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        native_so = pool.submit(native.build)
+        lib = load_library()
+        native_so = native_so.result()
+    say(f"kernels built in {lib.build_s:.1f} s -> "
+        f"{os.path.relpath(lib.path, ROOT)}; native DB loader -> "
+        f"{os.path.relpath(native_so, ROOT)}; both in "
+        f"{time.perf_counter() - t0:.1f} s")
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
@@ -415,7 +724,12 @@ def main() -> int:
     for name, fn in (("phase0", phase0), ("phase1", phase1),
                      ("phase2", phase2), ("phase3", phase3),
                      ("phase4", phase4),
-                     ("phase5", lambda d, o: phase5(d, o, card))):
+                     ("phase5", lambda d, o: phase5(d, o, card)),
+                     ("phase6", phase6),
+                     ("phase7", lambda d, o: phase7(d, o, card)),
+                     ("phase8", lambda d, o: phase8(d, o, card)),
+                     ("phase9", lambda d, o: phase9(d, o, card))):
+        t0 = time.perf_counter()
         try:
             err = fn(dev, out)
             if err is not None:
@@ -424,6 +738,7 @@ def main() -> int:
             traceback.print_exc()
             say(f"{name} FAILED")
             failed.append(name)
+        say(f"({name}: {time.perf_counter() - t0:.1f} s)")
     sa_errs = [e for n, e in errs.items() if n != "phase0"]
     say(json.dumps({"kernels": [{
         "name": "sa_search", "route": "cuda",

@@ -11,10 +11,11 @@ compatible with the reference's host program (cudaSaTabsearch.cu:573-700):
 * ``-c``: run the plain PyTorch engine on the CPU (the reference's
   ``-c`` runs its host-compiled kernel).
 
-Extensions: ``--backend {auto,cuda,torch}`` (the CUDA kernel, or the
-plain PyTorch engine on the card), ``--compat-z`` (the reference's
-int-truncated z-scores), ``--seed N``, ``--cmax N``.  ``--mesh`` is
-not ported yet.
+Extensions: ``--mesh`` (shard the DB entries over all visible CUDA
+devices; with ``-c``, over the CPU device), ``--backend
+{auto,cuda,torch}`` (the CUDA kernel, or the plain PyTorch engine on the
+card), ``--compat-z`` (the reference's int-truncated z-scores),
+``--seed N``, ``--cmax N``.
 
 stdout carries results; all telemetry goes to stderr.
 """
@@ -46,7 +47,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("-r", "--restarts", type=int, default=DEFAULT_MAXSTART,
                     help="number of SA restarts per entry (default 128)")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard DB entries across devices (not ported yet)")
+                    help="shard DB entries across all visible CUDA devices "
+                         "(with -c: the CPU device)")
     ap.add_argument("--backend", choices=("auto", "cuda", "torch"),
                     default="auto",
                     help="SA search: the CUDA kernel, or the plain PyTorch "
@@ -76,15 +78,13 @@ def main(argv=None) -> int:
 def _run(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     err = sys.stderr
-    if args.mesh:
-        print("ERROR: --mesh is not ported yet", file=err)
-        return 1
-
     print(f"MAXDIM = {MAXDIM}", file=err)
     config = SessionConfig(maxstart=args.restarts, seed=args.seed,
                            c_max=args.cmax, compat_z=args.compat_z,
                            backend=args.backend,
-                           device="cpu" if args.cpu else None)
+                           device="cpu" if args.cpu else None,
+                           use_mesh=args.mesh,
+                           devices=["cpu"] if args.cpu else None)
 
     if args.querydb is not None:
         # query-list mode (cudaSaTabsearch.cu:631-664): LTYPE/LORDER=T,
@@ -112,7 +112,9 @@ def _run(argv=None) -> int:
     print(f"Loaded {session.nentries} db entries "
           f"({session.load_ms:.1f} ms load, "
           f"{session.upload_ms:.1f} ms device upload, "
-          f"{session.backend} on {session.device})", file=err)
+          f"{session.backend} on "
+          f"{', '.join(map(str, session.mesh or [session.device]))})",
+          file=err)
     print(f"maxstart = {args.restarts}", file=err)
 
     # query-list ids resolve against the resident DB; qn passed to the

@@ -1,12 +1,17 @@
-"""Start-up kernel: bring up the CUDA context and the kernel library.
+"""Start-up: bring up the CUDA context, the kernel library and every
+kernel the first search launches.
 
 Counterpart of cuda_satabsearch_tpu/core/warmup.py (``warm_backend``,
-its one-op Pallas kernel :48-51), which ran once to open the TPU's
-compile session.  Here the same one-op kernel, o = x + 1 on f32[8, 128]
-(csrc/warmup.cu, built into the library of ops/sa_kernel.py), is
-launched once when a search session starts, so the CUDA context and the
-kernel library (built with nvcc at first use) are brought up before the
-first search, and its time is reported on stderr.
+its one-op Pallas kernel :48-51), which ran once so that the first real
+search paid no first-use cost.  Here the same one-op kernel, o = x + 1
+on f32[8, 128] (csrc/warmup.cu, built into the library of
+ops/sa_kernel.py), is launched once when a search session starts; then
+the SA kernel's module is loaded and its shared-memory limit set
+(ops/sa_kernel.prepare), and ``rng.entry_keys`` runs once on one index
+and its keys are put in the kernel's format (ops/sa_kernel.key_bits),
+which loads the torch elementwise kernels a search's keys need (on an
+H100 their first use cost a fresh process's first search 76-103 ms).
+The three times are reported on stderr.
 
 ``add_one`` runs the plain version (x + 1) on CPU tensors and launches
 the kernel on CUDA tensors, or raises.  ``add_one.launches`` counts
@@ -20,7 +25,9 @@ import time
 
 import torch
 
-from ..ops.sa_kernel import check_tensor, load_library
+from ..ops import rng
+from ..ops.sa_kernel import (check_tensor, device_guard, key_bits,
+                             load_library, prepare)
 
 SHAPE = (8, 128)  # the JAX package's warm-up block
 
@@ -38,10 +45,9 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return out
     lib = load_library().lib
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with device_guard(dev):
         err = lib.add_one_launch(x.data_ptr(), out.data_ptr(), x.numel(),
-                                 stream)
+                                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("start-up kernel launch failed: "
                            + lib.sa_search_error_string(err).decode())
@@ -53,18 +59,25 @@ add_one.launches = 0
 
 
 def warm_backend(device: torch.device, log: bool = True) -> float:
-    """Launch the start-up kernel once on ``device`` and check its
-    result; returns the wall seconds spent (0.0 on the CPU, where there
-    is nothing to bring up)."""
+    """Bring up ``device`` for searching: launch the start-up kernel once
+    and check its result, prepare the SA kernel, and make one entry's
+    key in the kernel's format.  Returns the wall seconds spent (0.0 on
+    the CPU, where there is nothing to bring up)."""
     if device.type == "cpu":
         return 0.0
     t0 = time.perf_counter()
     out = add_one(torch.zeros(SHAPE, dtype=torch.float32, device=device))
     ok = bool((out == 1.0).all())  # drains the launch
-    dt = time.perf_counter() - t0
+    t1 = time.perf_counter()
     if not ok:
         raise RuntimeError("start-up kernel returned wrong values")
+    prepare(device)
+    t2 = time.perf_counter()
+    key_bits(rng.entry_keys(0, [0], [0], device=device)).cpu()
+    t3 = time.perf_counter()
     if log:
-        print(f"# start-up kernel (CUDA context, kernel library load): "
-              f"{dt * 1000.0:.1f} ms", file=sys.stderr)
-    return dt
+        print(f"# start-up on {device}: CUDA context and kernel library "
+              f"{(t1 - t0) * 1e3:.1f} ms, SA module prepare "
+              f"{(t2 - t1) * 1e3:.1f} ms, torch kernels "
+              f"{(t3 - t2) * 1e3:.1f} ms", file=sys.stderr)
+    return t3 - t0

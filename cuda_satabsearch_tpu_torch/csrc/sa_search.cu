@@ -354,10 +354,26 @@ size_t sa_search_smem_bytes(int n1r, int d2, int c_par, int lsoln) {
   return Layout(n1r, d2, c_par, lsoln != 0).total;
 }
 
-// Launches the search on `stream`; returns the cudaError_t of the
-// attribute call or of the launch (0 = success).  `uniforms` (supplied
-// stream) or `keys` (in-kernel threefry): exactly one is non-null.
-// `out_maps` may be null when lsoln == 0.
+// One-time set-up of the kernel on the current device: loads its module
+// (cudaFuncGetAttributes forces the lazy load that the first launch
+// would otherwise pay) and allows it `device_max_smem` bytes of dynamic
+// shared memory, the device's opt-in limit, so that no launch has to set
+// the attribute.  Returns the cudaError_t (0 = success).
+int sa_search_prepare(int device_max_smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, sa_search_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(sa_search_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             device_max_smem - static_cast<int>(
+                                 attr.sharedSizeBytes));
+  return static_cast<int>(err);
+}
+
+// Launches the search on `stream`; returns the cudaError_t of the launch
+// (0 = success).  sa_search_prepare must have run on the device first.
+// `uniforms` (supplied stream) or `keys` (in-kernel threefry): exactly
+// one is non-null.  `out_maps` may be null when lsoln == 0.
 int sa_search_launch(const int8_t* qtypes, const uint8_t* qtab,
                      const float* qdmat, const int* n1s, int K, int n1r,
                      const int8_t* types, const uint8_t* tab,
@@ -370,10 +386,6 @@ int sa_search_launch(const int8_t* qtypes, const uint8_t* qtab,
   const SAParams p{maxiter, temp0, alpha, mxssed, init_matchprob, eps,
                    maxscore_init};
   const size_t smem = sa_search_smem_bytes(n1r, d2, c_par, lsoln);
-  cudaError_t err = cudaFuncSetAttribute(
-      sa_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(E), static_cast<unsigned>(K));
   sa_search_kernel<<<grid, c_par, smem, static_cast<cudaStream_t>(stream)>>>(
       qtypes, qtab, qdmat, n1s, n1r, types, tab, dmat, n2s, E, d2, uniforms,

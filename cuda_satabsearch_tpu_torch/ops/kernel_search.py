@@ -5,9 +5,10 @@ Counterpart of cuda_satabsearch_tpu/ops/pallas_search.py
 (``prepare_bucket_pallas2`` :137-194, ``dispatch_db_pallas2[_multi]`` /
 ``assemble_db_pallas2[_multi]`` :549-717), without the TPU's chunk
 plan, entry groups, query scatters and packed int8 drains: each bucket
-is uploaded once as plain tensors, K queries of one round8 group run in
-one launch per bucket (grid entries x queries), and scores and maps
-come back as int32.
+is uploaded once as plain tensors (whole, or as shards over a mesh of
+devices, parallel/mesh.py), K queries of one round8 group run in one
+launch per bucket per shard (grid entries x queries), and scores and
+maps come back as int32.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from ..core.constants import DEFAULTS, SAParams
+from ..parallel.distributed import to_host
 from . import rng
 from .common import pack_tab, prepare_query, round8
 from .engine import search_plain
@@ -36,11 +38,12 @@ class DeviceBucket:
     index: np.ndarray  # int32 [E] file-order position, -1 = padding
 
 
-def prepare_bucket(bucket, device) -> DeviceBucket:
-    """Upload a PackedBucket (from either package's packer: the fields
-    and dtypes are the same) once."""
+def prepare_bucket(bucket, device, rows: slice = slice(None)
+                   ) -> DeviceBucket:
+    """Upload rows ``rows`` of a PackedBucket (from either package's
+    packer: the fields and dtypes are the same) once."""
     def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        return torch.from_numpy(np.ascontiguousarray(x[rows])).to(device)
 
     return DeviceBucket(
         dim=bucket.dim,
@@ -48,7 +51,7 @@ def prepare_bucket(bucket, device) -> DeviceBucket:
         tab=put(pack_tab(bucket.tabhi, bucket.tablo).astype(np.uint8)),
         dmat=put(bucket.dmat.astype(np.float32)),
         n2=put(bucket.orders.astype(np.int32)),
-        index=np.asarray(bucket.index, np.int32))
+        index=np.asarray(bucket.index, np.int32)[rows])
 
 
 def pack_queries(queries, n1r: int, device):
@@ -65,46 +68,61 @@ def pack_queries(queries, n1r: int, device):
         np.stack(qts), np.stack(qtabs), np.stack(qdmats), n1s))
 
 
-def search_group(queries, buckets: list[DeviceBucket], nentries: int, *,
-                 lorder: bool, lsoln: bool, seed: int,
-                 query_tags, c_par: int, r_seq: int, backend: str,
+def search_group(queries, shards: list[list[DeviceBucket]], nentries: int,
+                 *, lorder: bool, lsoln: bool, seed: int, query_tags,
+                 c_par: int, r_seq: int, backend: str, gather: bool = False,
                  params: SAParams = DEFAULTS):
-    """Search K queries of one round8 group against every bucket.
+    """Search K queries of one round8 group against every bucket of
+    every shard (ops/search.upload_db).
 
     ``backend`` "cuda" runs the kernel's wrapper (ops/sa_kernel.py),
-    "torch" the plain engine (ops/engine.py), on the buckets' device.
-    Returns [(scores int32[nentries], maps int32[nentries, n1] or
-    None)] in query order, entries in database file order."""
+    "torch" the plain engine (ops/engine.py), on each shard's device.
+    Every shard's buckets are launched, on that device's current stream,
+    before any shard is drained, so the devices run together.
+    ``gather``: the shards of the other ranks of a multi-process run are
+    all-gathered (parallel/distributed.to_host).  Returns
+    [(scores int32[nentries], maps int32[nentries, n1] or None)] in
+    query order, entries in database file order."""
     n1r = round8(max(q.order for q in queries))
     if any(round8(q.order) != n1r for q in queries):
         raise ValueError("queries of one call must share round8(order)")
     K = len(queries)
     fn = {"cuda": sa_search, "torch": search_plain}[backend]
+    launched = []
+    for buckets in shards:
+        if not buckets:  # an empty DB
+            continue
+        dev = buckets[0].types.device
+        qargs = pack_queries(queries, n1r, dev)
+        index = np.concatenate([b.index for b in buckets])
+        # every bucket's keys in one call: the threefry rounds are ~200
+        # small elementwise ops, whose launches would otherwise repeat
+        # per bucket
+        keys = rng.entry_keys(seed, query_tags, index, device=dev)
+        outs_s, outs_m, off = [], [], 0
+        for b in buckets:
+            E = len(b.index)
+            s, m = fn(*qargs, b.types, b.tab, b.dmat, b.n2,
+                      keys=keys[:, off:off + E], c_par=c_par, r_seq=r_seq,
+                      lorder=lorder, lsoln=lsoln, params=params)
+            off += E
+            outs_s.append(s)
+            outs_m.append(m)
+        launched.append((dev, index, torch.cat(outs_s, dim=1),
+                         torch.cat(outs_m, dim=1) if lsoln else None))
     scores = np.zeros((K, nentries), np.int32)
     maps = np.full((K, nentries, n1r), -1, np.int32) if lsoln else None
-    if not buckets:  # an empty DB
-        return [(scores[k], None if maps is None else maps[k, :, :q.order])
-                for k, q in enumerate(queries)]
-    dev = buckets[0].types.device
-    qargs = pack_queries(queries, n1r, dev)
-    index = np.concatenate([b.index for b in buckets])
-    # every bucket's keys in one call: the threefry rounds are ~200 small
-    # elementwise ops, whose launches would otherwise repeat per bucket
-    keys = rng.entry_keys(seed, query_tags, index, device=dev)
-    outs_s, outs_m, off = [], [], 0
-    for b in buckets:
-        E = len(b.index)
-        s, m = fn(*qargs, b.types, b.tab, b.dmat, b.n2,
-                  keys=keys[:, off:off + E], c_par=c_par, r_seq=r_seq,
-                  lorder=lorder, lsoln=lsoln, params=params)
-        off += E
-        outs_s.append(s)
-        outs_m.append(m)
-    # one drain per output for the whole group
-    valid = index >= 0  # drop padding entries
-    scores[:, index[valid]] = torch.cat(outs_s, dim=1).cpu().numpy()[:, valid]
-    if lsoln:
-        maps[:, index[valid]] = torch.cat(outs_m, dim=1).cpu().numpy()[
-            :, valid]
+    for dev, index, s, m in launched:  # one drain per output per shard
+        if gather:
+            index = to_host(torch.from_numpy(index).to(dev))
+            s = to_host(s, dim=1)
+            m = to_host(m, dim=1) if lsoln else None
+        else:
+            s = s.cpu().numpy()
+            m = m.cpu().numpy() if lsoln else None
+        valid = index >= 0  # drop padding entries
+        scores[:, index[valid]] = s[:, valid]
+        if lsoln:
+            maps[:, index[valid]] = m[:, valid]
     return [(scores[k], None if maps is None else maps[k, :, :q.order])
             for k, q in enumerate(queries)]

@@ -6,8 +6,12 @@ kernel is CUDA C++ for sm_90a, compiled with nvcc at first launch from
 the package's own sources into one library in
 ``cuda_satabsearch_tpu_torch/_build/`` (keyed by a hash of the sources
 and flags), together with the start-up kernel of csrc/warmup.cu
-(core/warmup.py), and bound through ctypes with plain C entry points.  Nothing is built or imported from the CUDA
-toolkit when this module is imported.
+(core/warmup.py), one nvcc process per source started together and
+one link, and bound through ctypes with plain C entry points.
+Nothing is built or imported from the CUDA toolkit when this module is
+imported.  ``prepare`` loads the kernel's module and sets its
+shared-memory limit once per device (the start-up does it ahead of the
+first search; otherwise the first launch on a device does).
 
 ``sa_search`` takes the tensors of ops/engine.search_plain.  Tensors on
 the CPU go to that plain version; tensors on a CUDA device launch the
@@ -16,6 +20,7 @@ kernel, or raise.  ``sa_search.launches`` counts kernel launches.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -23,7 +28,7 @@ import os
 import shutil
 import subprocess
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
@@ -36,8 +41,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "sa_search.cu", _PKG / "csrc" / "warmup.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclass
@@ -46,6 +50,8 @@ class Library:
     path: Path
     build_s: float  # 0.0 when the library was already built
     log: str  # nvcc's output (ptxas registers / shared memory / spills)
+    # device index -> its dynamic shared-memory limit, once prepared
+    smem_limit: dict = field(default_factory=dict)
 
 
 def find_nvcc() -> str:
@@ -67,14 +73,28 @@ def load_library() -> Library:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in SOURCES)]
+        objs = [so.with_name(f"{s.stem}_{digest}.{os.getpid()}.o")
+                for s in SOURCES]
+        nvcc = find_nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        # one nvcc per source, all at once, then one link
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        outs = [(p.communicate()[0], p.returncode) for p in procs]
+        log = "".join(text for text, _ in outs)
+        if any(rc != 0 for _, rc in outs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *(str(o) for o in objs)],
+                             capture_output=True, text=True)
         build_s = time.perf_counter() - t0
-        log = res.stdout + res.stderr
+        for o in objs:
+            o.unlink()
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
         os.replace(tmp, so)  # atomic: concurrent builds agree
     lib = ctypes.CDLL(str(so))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -86,6 +106,8 @@ def load_library() -> Library:
         I, F, F, F, F, F, I,  # SAParams
         P, P, P]  # out_scores, out_maps, stream
     lib.sa_search_launch.restype = I
+    lib.sa_search_prepare.argtypes = [I]  # device_max_smem
+    lib.sa_search_prepare.restype = I
     lib.sa_search_smem_bytes.argtypes = [I, I, I, I]
     lib.sa_search_smem_bytes.restype = ctypes.c_size_t
     lib.sa_search_error_string.argtypes = [I]
@@ -93,6 +115,33 @@ def load_library() -> Library:
     lib.add_one_launch.argtypes = [P, P, I, P]  # x, out, n, stream
     lib.add_one_launch.restype = I
     return Library(lib=lib, path=so, build_s=build_s, log=log)
+
+
+def device_guard(dev: torch.device):
+    """The guard a launch on CUDA device ``dev`` needs: none when ``dev``
+    is already the current device."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def prepare(dev: torch.device) -> int:
+    """Load the SA kernel's module on CUDA device ``dev`` and allow it
+    the device's opt-in dynamic shared memory, once per device; returns
+    that limit in bytes."""
+    library = load_library()
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx not in library.smem_limit:
+        limit = torch.cuda.get_device_properties(
+            idx).shared_memory_per_block_optin
+        with torch.cuda.device(idx):
+            err = library.lib.sa_search_prepare(limit)
+        if err != 0:
+            raise RuntimeError("SA kernel prepare failed: "
+                               + library.lib.sa_search_error_string(
+                                   err).decode())
+        library.smem_limit[idx] = limit
+    return library.smem_limit[idx]
 
 
 def check_tensor(name, t, dtype, shape, device):
@@ -105,6 +154,13 @@ def check_tensor(name, t, dtype, shape, device):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def key_bits(keys: torch.Tensor) -> torch.Tensor:
+    """The kernel's key format: the int32 bits of uint32 values held in
+    int64 (ops/rng.entry_keys)."""
+    return torch.where(keys >= 1 << 31, keys - (1 << 32), keys).to(
+        torch.int32)
 
 
 def sa_search(qtypes, qtab, qdmat, n1s, types, tab, dmat, n2, *,
@@ -138,9 +194,8 @@ def sa_search(qtypes, qtab, qdmat, n1s, types, tab, dmat, n2, *,
     check_tensor("dmat", dmat, torch.float32, (E, d2, d2), dev)
     check_tensor("n2", n2, torch.int32, (E,), dev)
     if keys is not None:
-        if keys.dtype == torch.int64:  # uint32 values -> their int32 bits
-            keys = torch.where(keys >= 1 << 31, keys - (1 << 32),
-                               keys).to(torch.int32)
+        if keys.dtype == torch.int64:
+            keys = key_bits(keys)
         check_tensor("keys", keys, torch.int32, (K, E, 2), dev)
     else:
         check_tensor("uniforms", uniforms, torch.float32,
@@ -150,15 +205,14 @@ def sa_search(qtypes, qtab, qdmat, n1s, types, tab, dmat, n2, *,
             if lsoln else None)
     if K == 0 or E == 0:
         return scores, maps
+    limit = prepare(dev)
     lib = load_library().lib
     smem = lib.sa_search_smem_bytes(n1r, d2, c_par, int(lsoln))
-    limit = getattr(torch.cuda.get_device_properties(dev),
-                    "shared_memory_per_block_optin", smem)
     if smem > limit:
         raise ValueError(f"SA kernel needs {smem} B of shared memory at "
                          f"n1r={n1r}, d2={d2}; the device allows {limit}")
     p = params
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sa_search_launch(
             qtypes.data_ptr(), qtab.data_ptr(), qdmat.data_ptr(),

@@ -6,11 +6,18 @@ reference host program's lifecycle, cudaSaTabsearch.cu main
 then run any number of queries against it.  ``format_results`` and
 ``print_query_header`` are copies of the JAX package's, byte for byte.
 
-On a card the session launches the start-up kernel once
-(core/warmup.py) after the DB load and before the upload, as the JAX
-package orders load -> warm -> upload: it brings up the CUDA context and
-the kernel library (built with nvcc at first use) and reports its time
-on stderr.  There is no compile cache.
+A DB file is parsed and packed by the native C++ loader (io/native.py,
+built with the host compiler at first use) as in the JAX package, or
+in Python where ``SATAB_NATIVE=0`` or no compiler exists (one stderr
+line says why).  With ``use_mesh`` the DB's entries are sharded over a
+mesh of devices (parallel/mesh.py), across the processes of a
+multi-process run too (parallel/distributed.py).
+
+On a card the session brings up each device once (core/warmup.py:
+the start-up kernel, the SA kernel's module, the entry-key kernels)
+after the DB load and before the upload, as the JAX package orders
+load -> warm -> upload, and reports the times on stderr.  There is no
+compile cache.
 """
 
 from __future__ import annotations
@@ -25,8 +32,11 @@ from .core.constants import DEFAULT_MAXSTART, DEFAULTS, MAXDIM, SAParams
 from .core.warmup import warm_backend
 from .io.pack import (DEFAULT_BUCKETS, PackedDB, PackedQuery,
                       pack_database, pack_query)
+from .io import native
 from .io.parser import TableauEntry, read_database
 from .ops.common import round8
+from .parallel import distributed
+from .parallel.mesh import make_mesh, mesh_shards
 from .ops.search import (SearchResult, resolve_backend, search_db_many,
                          upload_db)
 from .stats.gumbel import score_stats
@@ -43,32 +53,41 @@ class SessionConfig:
     backend: str = "auto"  # "cuda" (kernel) | "torch" (plain) | "auto"
     device: str | None = None  # "cpu" for the plain engine on the CPU
     compat_z: bool = False  # reproduce the reference's int-truncated z
+    use_mesh: bool = False  # shard the entry axis over a mesh of devices
+    devices: list | None = None  # the mesh (default: all CUDA devices)
 
 
 class SearchSession:
     def __init__(self, dbfile: str, config: SessionConfig | None = None,
                  entries: list[TableauEntry] | None = None):
-        self.config = config or SessionConfig()
+        cfg = self.config = config or SessionConfig()
         self.dbfile = dbfile
         # fail on a missing card before the DB is read
-        self.backend, self.device = resolve_backend(self.config.backend,
-                                                    self.config.device)
+        self.mesh = make_mesh(cfg.devices) if cfg.use_mesh else None
+        self.backend, self.device = resolve_backend(
+            cfg.backend, self.mesh[0] if self.mesh else cfg.device)
+        # the shards of every rank, when they span processes
+        self.gather = self.mesh is not None and distributed.world_size() > 1
+        pad_to = mesh_shards(self.mesh)[1] if self.mesh else 1
 
         t0 = time.perf_counter()
-        if entries is None:
-            entries = read_database(dbfile, maxdim=self.config.maxdim)
-        self.db: PackedDB = pack_database(entries, self.config.buckets)
+        if entries is not None:
+            self.db = pack_database(entries, cfg.buckets, pad_to=pad_to)
+        else:
+            self.db = _load_db(dbfile, cfg, pad_to)
         self.load_ms = (time.perf_counter() - t0) * 1000.0
 
         # after the DB load: a missing or bad dbfile fails before the
         # device is touched
-        self.warmup_s = (warm_backend(self.device)
+        devices = list(dict.fromkeys(self.mesh or [self.device]))
+        self.warmup_s = (sum(warm_backend(d) for d in devices)
                          if self.backend == "cuda" else 0.0)
 
         t0 = time.perf_counter()
-        self.device_db = upload_db(self.db, self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self.device_db = upload_db(self.db, self.mesh or self.device)
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         self.upload_ms = (time.perf_counter() - t0) * 1000.0
         self._query_tag = 0
 
@@ -88,7 +107,7 @@ class SearchSession:
         cfg = self.config
         return dict(maxstart=cfg.maxstart, lorder=lorder, lsoln=lsoln,
                     seed=cfg.seed, c_max=cfg.c_max, backend=self.backend,
-                    params=cfg.params)
+                    gather=self.gather, params=cfg.params)
 
     def search_many(self, queries, *, lorder: bool = True,
                     lsoln: bool = False) -> list[SearchResult]:
@@ -120,6 +139,19 @@ class SearchSession:
         return search_db_many([query], self.db, self.device_db,
                               query_tags=[query_tag],
                               **self._kw(lorder, lsoln))[0]
+
+
+def _load_db(dbfile: str, cfg: SessionConfig, pad_to: int) -> PackedDB:
+    """Parse and pack a DB file: natively (io/native.py) where the
+    loader can be built, else in Python."""
+    why = native.unavailable()
+    if why is None:
+        return native.pack_database_file(dbfile, cfg.buckets,
+                                         maxdim=cfg.maxdim, pad_to=pad_to)
+    print(f"# native DB loader not used ({why}): parsing in Python",
+          file=sys.stderr)
+    return pack_database(read_database(dbfile, maxdim=cfg.maxdim),
+                         cfg.buckets, pad_to=pad_to)
 
 
 def format_results(result: SearchResult, qn: int, *, lsoln: bool,

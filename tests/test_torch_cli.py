@@ -107,9 +107,16 @@ def test_without_card_and_without_c_exits_nonzero(monkeypatch, capsys):
 
 
 def test_mesh_is_not_ported(monkeypatch, capsys):
-    rc, out, err = _run_inprocess(["-c", "--mesh"], "", monkeypatch, capsys)
-    assert rc == 1 and out == ""
-    assert "not ported yet" in err
+    """``--mesh`` is ported: with ``-c`` it shards over the CPU device and
+    prints what ``-c`` alone prints (d1ubia_, LSOLN on)."""
+    with open(os.path.join(FIXTURES, "d1ubia_.input")) as fp:
+        text = fp.read()
+    rc, out, err = _run_inprocess(["-c", "--mesh"], text, monkeypatch,
+                                  capsys)
+    assert rc == 0, err
+    assert "not ported yet" not in err
+    assert (rc, out) == _run_inprocess(["-c"], text, monkeypatch, capsys)[:2]
+    assert out.startswith("# torchsatabsearch LTYPE = ")
 
 
 def test_kernel_backend_with_c_is_refused(monkeypatch, capsys):

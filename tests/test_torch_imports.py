@@ -37,6 +37,9 @@ def test_every_module_imports_without_jax():
     assert "cuda_satabsearch_tpu_torch.ops.sa_kernel" in mods
     assert "cuda_satabsearch_tpu_torch.cli" in mods
     assert "cuda_satabsearch_tpu_torch.core.warmup" in mods
+    for name in ("io.native", "io.writer", "eval.roc", "eval.acceptance",
+                 "parallel.mesh", "parallel.distributed"):
+        assert f"cuda_satabsearch_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -61,6 +64,8 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         "assert sa_kernel.sa_search.launches == 0\n"
         "assert warmup.add_one.launches == 0\n"
         "assert sa_kernel.load_library.cache_info().currsize == 0\n"
+        "from cuda_satabsearch_tpu_torch.io import native\n"
+        "assert native.load_library.cache_info().currsize == 0\n"
         "try:\n"
         "    sa_kernel.find_nvcc()\n"
         "except RuntimeError as e:\n"

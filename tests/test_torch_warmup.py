@@ -17,6 +17,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 
 from cuda_satabsearch_tpu.core import warmup as jwarmup  # noqa: E402
 from cuda_satabsearch_tpu_torch import session as tsession  # noqa: E402
+from cuda_satabsearch_tpu_torch.core import warmup as twarmup  # noqa: E402
 from cuda_satabsearch_tpu_torch.core.warmup import (  # noqa: E402
     SHAPE, add_one, warm_backend)
 
@@ -45,6 +46,17 @@ def test_add_one_matches_pallas_interpret(seed):
     np.testing.assert_array_equal(got.numpy(), _pallas_add_one(x))
 
 
+@pytest.mark.parametrize("shape", [(3, 37), (1027,), (2, 3, 4)])
+def test_add_one_matches_pallas_interpret_odd_sizes(shape):
+    """Sizes that are not a whole number of float4s (the kernel's scalar
+    tail) or not 2-D, against the same Pallas kernel."""
+    x = np.random.default_rng(sum(shape)).standard_normal(shape).astype(
+        np.float32)
+    got = add_one(torch.from_numpy(x))
+    assert tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy(), _pallas_add_one(x))
+
+
 def test_add_one_refuses_other_devices():
     with pytest.raises(ValueError, match="no start-up kernel"):
         add_one(torch.zeros(SHAPE, dtype=torch.float32, device="meta"))
@@ -57,6 +69,38 @@ def test_warm_backend_is_a_no_op_on_the_cpu_in_both_packages(monkeypatch):
     assert warm_backend(torch.device("cpu")) == 0.0
     assert add_one.launches == before
     assert jwarmup.warm_backend(log=False) == 0.0
+
+
+def test_warm_backend_brings_up_three_parts(monkeypatch, capsys):
+    """On a card, warm_backend launches the start-up kernel, prepares the
+    SA kernel and makes one entry key in the kernel's format, in order, and
+    reports the three times on one stderr line (stand-ins here for the
+    parts that need a card)."""
+    calls = []
+    dev = torch.device("meta")
+
+    def fake_add_one(x):
+        calls.append(("add_one", x.device, tuple(x.shape)))
+        return torch.ones(SHAPE)
+
+    def fake_keys(seed, tags, index, device=None):
+        calls.append(("entry_keys", device, list(tags), list(index)))
+        return torch.zeros((1, 1, 2), dtype=torch.int64)
+
+    monkeypatch.setattr(twarmup, "add_one", fake_add_one)
+    monkeypatch.setattr(twarmup, "prepare",
+                        lambda d: calls.append(("prepare", d)))
+    monkeypatch.setattr(twarmup.rng, "entry_keys", fake_keys)
+    monkeypatch.setattr(twarmup, "key_bits",
+                        lambda k: calls.append(("key_bits", k.dtype)) or k)
+    assert warm_backend(dev) >= 0.0
+    assert calls == [("add_one", dev, SHAPE), ("prepare", dev),
+                     ("entry_keys", dev, [0], [0]),
+                     ("key_bits", torch.int64)]
+    (line,) = capsys.readouterr().err.splitlines()
+    assert line.startswith("# start-up on meta: CUDA context and kernel "
+                           "library ")
+    assert "SA module prepare" in line and "torch kernels" in line
 
 
 def test_session_warms_after_the_db_load(monkeypatch):
