@@ -34,7 +34,16 @@ times a 14291-entry ASTRAL-like synthetic DB.  Phases:
    [cuda:0, cuda:0] and on all visible devices, on both DBs, timed;
 9. the first and second search of fresh processes running the CLI on
    d1ubia_.input, with the full start-up and with the start-up kernel
-   alone.
+   alone;
+10. the evaluation path on the card: the three evaluation drivers of
+   cuda_satabsearch_tpu_torch/eval/ into a temporary directory.
+   ``make_eval_artifact`` runs multiquery.input through the CLI in a
+   subprocess (the kernel row must reach a mean AUC within 0.01 of the
+   JAX package's 0.9796 and print, header aside, the JAX package's
+   committed XLA-engine output byte for byte), ``gumbel_fit_artifact``
+   fits 24 queries at r = 4096 (24 finite rows), ``acceptance_eval``
+   writes its report (verdict PASS); the SA kernel's launch counter must
+   move in each.
 
 Prints one line per phase, then a JSON line with the kernels' numbers,
 then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -62,14 +71,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 TOP3 = {"d1c3ta_", "d2faza1", "d1uela_"}  # README_example_usage.txt:92-111
 DB586 = os.path.join(FIXTURES, "tableauxdistmatrixdb.small.ascii")
-GOLDEN = os.path.join(FIXTURES, "refgolden")
-# the acceptance queries and their SSE counts (scripts/acceptance_eval.py:37)
-GATE_QUERIES = {"d1ubia_": 8, "d1ae6h1": 13, "d2phlb1": 19}
-# the reference's own GPU-vs-CPU auc5 on d2phlb1 at r = 4096, from its
-# archived 2012 run logs (ACCEPTANCE.md:20); the gate is within 0.01 of
-# it (BASELINE.md's "within 1%" bar)
-REF_GPU_AUC5 = 0.9915
-GATE_AUC5 = REF_GPU_AUC5 - 0.01
+# the JAX package's committed mean AUC of its multiquery run
+# (eval_artifacts/auc_table.txt); the card's kernel row must come within
+# 0.01 of it
+JAX_MEAN_AUC = 0.9796
+JAX_XLA_OUT = os.path.join(ROOT, "eval_artifacts",
+                           "multiquery_tpu-xla-engine.out")
+# the program-name header of a search output
+HEADER = re.compile(r"^# \S+ LTYPE = .*\n", re.M)
 
 
 def say(*a):
@@ -507,46 +516,11 @@ def phase6(dev, out):
                 raise AssertionError(f"native and Python packs differ: {bad}")
 
 
-def golden_scores(path) -> dict:
-    """{name: norm2} from a reference-format output file (column 2, the
-    ranking the acceptance evaluation uses; scripts/acceptance_eval.py
-    :40-54)."""
-    out = {}
-    with open(path) as fp:
-        for line in fp:
-            parts = line.split()
-            if line.startswith("#") or len(parts) != 5:
-                continue
-            try:
-                out[parts[0]] = float(parts[2])
-            except ValueError:
-                pass
-    return out
-
-
-def parity_row(sess, qname: str, golden_r: int):
-    """(ParityReport, ms) of one search of acceptance query ``qname`` on
-    ``sess`` against the oracle's output at ``golden_r`` restarts,
-    ranked by norm2 as scripts/acceptance_eval.py:108-118 ranks them."""
-    from cuda_satabsearch_tpu_torch.eval.acceptance import parity_report
-    from cuda_satabsearch_tpu_torch.stats.gumbel import norm2
-
-    query = read_query(f"{qname}.input")[0]
-    t0 = time.perf_counter()
-    res = sess.search(query, lorder=True, lsoln=False)
-    ms = (time.perf_counter() - t0) * 1e3
-    n1 = GATE_QUERIES[qname]
-    ours = {res.names[i]: norm2(int(res.scores[i]), n1, int(res.orders[i]))
-            for i in range(res.nentries)}
-    ref = golden_scores(os.path.join(GOLDEN, f"{qname}_small_r{golden_r}.out"))
-    return parity_report(ours, ref), ms
-
-
 def phase7(dev, out, card):
     from cuda_satabsearch_tpu_torch.core.warmup import add_one
+    from cuda_satabsearch_tpu_torch.eval.acceptance_eval import (
+        parity_rows, verdict)
     from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
-    from cuda_satabsearch_tpu_torch.session import (SearchSession,
-                                                    SessionConfig)
 
     say("phase7 acceptance vs the reference CPU oracle "
         "(tests/fixtures/refgolden/), 586-entry DB, SA kernel:")
@@ -554,26 +528,19 @@ def phase7(dev, out, card):
         "ms per query |")
     say("|---|---|---|---|---|---|---|---|")
     sa_search.launches = add_one.launches = 0
-    gate = None
-    for r in (128, 4096):
-        sess = SearchSession(DB586, SessionConfig(maxstart=r, backend="cuda",
-                                                  device=str(dev)))
-        for qname, n1 in GATE_QUERIES.items():
-            rep, ms = parity_row(sess, qname, r)
-            say(f"| {qname} | {n1} | {r} | {rep.spearman:.4f} | "
-                f"{rep.top10:.2f} | {rep.top50:.2f} | {rep.auc5:.4f} | "
-                f"{ms:.3f} |")
-            if (qname, r) == ("d2phlb1", 4096):
-                gate, out["gate_ms"] = rep.auc5, ms
+    rows = parity_rows((128, 4096), backend="cuda", device=str(dev))
     launches, warm = sa_search.launches, add_one.launches
-    say(f"phase7 gate: d2phlb1 r=4096 auc5 {gate:.4f}, bar >= "
-        f"{GATE_AUC5:.4f} (the reference GPU's {REF_GPU_AUC5} - 0.01); "
-        f"{launches} SA kernel and {warm} start-up kernel launches; "
-        f"card {card}")
+    for qname, n1, r, rep, ms in rows:
+        say(f"| {qname} | {n1} | {r} | {rep.spearman:.4f} | "
+            f"{rep.top10:.2f} | {rep.top50:.2f} | {rep.auc5:.4f} | "
+            f"{ms:.3f} |")
+    passed, text = verdict(rows)
+    say(f"phase7 gate: {text}; {launches} SA kernel and {warm} start-up "
+        f"kernel launches; card {card}")
     if launches < 1 or warm < 1:
         raise AssertionError("the acceptance path did not run the kernels")
-    if gate < GATE_AUC5:
-        raise AssertionError(f"d2phlb1 r=4096 auc5 {gate:.4f} < {GATE_AUC5}")
+    if not passed:
+        raise AssertionError("the acceptance gate failed")
 
 
 def search_wall_ms(sess, query, reps=3):
@@ -688,6 +655,107 @@ def phase9(dev, out, card):
             f"card {card}")
 
 
+def phase10(dev, out, card):
+    from cuda_satabsearch_tpu_torch.eval import (acceptance_eval,
+                                                 gumbel_fit_artifact,
+                                                 make_eval_artifact)
+    from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
+
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "eval")
+        t0 = time.perf_counter()
+        rc = make_eval_artifact.main(["--out", art])  # both rows
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"make_eval_artifact exited {rc}")
+        with open(os.path.join(art, "runs.json")) as fp:
+            runs = {r["label"]: r for r in json.load(fp)["rows"]}
+        with open(os.path.join(art, "auc_table.txt")) as fp:
+            table = fp.read().splitlines()
+        with open(os.path.join(art, "timestab.tex")) as fp:
+            timestab = [ln for ln in fp.read().splitlines() if " & " in ln]
+        for ln in table + timestab:
+            say(f"phase10 | {ln}")
+        mean = float(re.search(r"mean AUC over \d+ queries: ([0-9.]+)",
+                               table[-1]).group(1))
+        outputs = {}
+        for label, run in runs.items():
+            with open(run["results"]) as fp:
+                outputs[label] = HEADER.sub("", fp.read())
+            say(f"phase10 make_eval_artifact row {label}: search "
+                f"{run['seconds'] * 1e3:.3f} ms (the CLI's search time), "
+                f"process {run['wall']:.1f} s, {run['launches']} SA kernel "
+                f"launches")
+        with open(JAX_XLA_OUT) as fp:
+            same_as_jax = outputs["h100-cuda"] == HEADER.sub("", fp.read())
+        say(f"phase10 make_eval_artifact: h100-cuda mean AUC {mean:.4f}, "
+            f"bar >= {JAX_MEAN_AUC - 0.01:.4f} (the JAX package's "
+            f"{JAX_MEAN_AUC} - 0.01); h100-cuda output == the JAX "
+            f"package's committed XLA-engine output (header aside): "
+            f"{same_as_jax}; {wall:.1f} s; card {card}")
+        if runs["h100-cuda"]["launches"] < 1:
+            raise AssertionError("make_eval_artifact's kernel row never "
+                                 "launched the SA kernel")
+        if runs["h100-torch"]["launches"] != 0:
+            raise AssertionError("the plain-engine row launched the kernel")
+        if not same_as_jax:
+            raise AssertionError("the h100-cuda output differs from the JAX "
+                                 "package's committed XLA-engine output")
+        if outputs["h100-torch"] != outputs["h100-cuda"]:
+            raise AssertionError("the kernel and plain-engine rows printed "
+                                 "different results")
+        say("phase10 h100-torch output == h100-cuda output (tolerance 0)")
+        if mean < JAX_MEAN_AUC - 0.01:
+            raise AssertionError(f"h100-cuda mean AUC {mean:.4f} too low")
+
+        gdir = os.path.join(tmp, "gumbel")
+        sa_search.launches = 0
+        t0 = time.perf_counter()
+        rc = gumbel_fit_artifact.main(["--out", gdir])
+        wall, launches = time.perf_counter() - t0, sa_search.launches
+        if rc != 0:
+            raise AssertionError(f"gumbel_fit_artifact exited {rc}")
+        with open(os.path.join(gdir, "gumbel_fit.json")) as fp:
+            fits = json.load(fp)
+        rows = fits["queries"]
+        a, b, n = fits["pooled"]
+        finite = all(np.isfinite(r[2]) and np.isfinite(r[3]) for r in rows)
+        say(f"phase10 gumbel_fit_artifact: {len(rows)} queries at r="
+            f"{fits['restarts']}, n per query {sorted({r[4] for r in rows})}"
+            f", all finite: {finite}; pooled a = {a:.4f}, b = {b:.4f} over "
+            f"{n} null scores, reference a = "
+            f"{gumbel_fit_artifact.REF_A:.4f}, b = "
+            f"{gumbel_fit_artifact.REF_B:.4f}; search "
+            f"{fits['search_s'] * 1e3:.3f} ms, {launches} SA kernel "
+            f"launches, {wall:.1f} s; card {card}")
+        if launches < 1:
+            raise AssertionError("gumbel_fit_artifact never launched the "
+                                 "SA kernel")
+        if len(rows) != 24 or not finite:
+            raise AssertionError(f"Gumbel fit: {len(rows)} rows, finite "
+                                 f"{finite}")
+
+        adir = os.path.join(tmp, "acceptance")
+        sa_search.launches = 0
+        t0 = time.perf_counter()
+        rc = acceptance_eval.main(["--out", adir])
+        wall, launches = time.perf_counter() - t0, sa_search.launches
+        with open(os.path.join(adir, "acceptance.md")) as fp:
+            report = fp.read().splitlines()
+        for ln in report:
+            if ln.startswith(("|", "**")):
+                say(f"phase10 acceptance | {ln}")
+        say(f"phase10 acceptance_eval: exit {rc}, {launches} SA kernel "
+            f"launches, {wall:.1f} s; card {card}")
+        if launches < 1:
+            raise AssertionError("acceptance_eval never launched the SA "
+                                 "kernel")
+        if rc != 0 or not any(ln.startswith("**Acceptance") and "PASS" in ln
+                              for ln in report):
+            raise AssertionError("the acceptance report's verdict is not "
+                                 "PASS")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -721,14 +789,15 @@ def main() -> int:
 
     out, failed = {}, []
     errs = {}  # phase -> max |diff| against the plain version
-    for name, fn in (("phase0", phase0), ("phase1", phase1),
-                     ("phase2", phase2), ("phase3", phase3),
-                     ("phase4", phase4),
-                     ("phase5", lambda d, o: phase5(d, o, card)),
-                     ("phase6", phase6),
-                     ("phase7", lambda d, o: phase7(d, o, card)),
-                     ("phase8", lambda d, o: phase8(d, o, card)),
-                     ("phase9", lambda d, o: phase9(d, o, card))):
+    phases = (("phase0", phase0), ("phase1", phase1), ("phase2", phase2),
+              ("phase3", phase3), ("phase4", phase4),
+              ("phase5", lambda d, o: phase5(d, o, card)),
+              ("phase6", phase6),
+              ("phase7", lambda d, o: phase7(d, o, card)),
+              ("phase8", lambda d, o: phase8(d, o, card)),
+              ("phase9", lambda d, o: phase9(d, o, card)),
+              ("phase10", lambda d, o: phase10(d, o, card)))
+    for name, fn in phases:
         t0 = time.perf_counter()
         try:
             err = fn(dev, out)

@@ -29,6 +29,7 @@ import time
 from .core.constants import DEFAULT_MAXSTART, MAXDIM
 from .io.pack import pack_query
 from .io.parser import parse_search_input
+from .ops.sa_kernel import sa_search
 from .session import (SearchSession, SessionConfig, format_results,
                       print_query_header)
 
@@ -134,6 +135,7 @@ def _run(argv=None) -> int:
     if not resolved:
         return 1 if qids else 0
 
+    launches = sa_search.launches
     t0 = time.perf_counter()
     results = session.search_many([q for _, q in resolved], lorder=lorder,
                                   lsoln=lsoln)
@@ -147,6 +149,7 @@ def _run(argv=None) -> int:
     print(f"search time {dt * 1000.0:.3f} ms "
           f"({len(resolved)} queries)", file=err)
     print(f"{iters / dt / 1.0e6:.1f} million iterations/sec", file=err)
+    print(f"{sa_search.launches - launches} SA kernel launches", file=err)
     return 0
 
 

@@ -1,8 +1,9 @@
 """The port's ranking-parity metrics (cuda_satabsearch_tpu_torch/eval/)
-against the JAX package's, and the acceptance row that chip_smoke.py's
-gate computes: on the CPU, the port's ``-c`` row for d1ubia_ on the
-586-entry DB equals the JAX package's ``-c`` row (the two search the
-same stream, bitwise, and rank by the same norm2)."""
+against the JAX package's, and the acceptance row that
+``eval/acceptance_eval.py`` computes (chip_smoke.py's gate calls it): on
+the CPU, the port's ``-c`` row for d1ubia_ on the 586-entry DB equals
+the JAX package's ``-c`` row (the two search the same stream, bitwise,
+and rank by the same norm2)."""
 
 import os
 
@@ -15,9 +16,9 @@ pytest.importorskip("jax")
 from cuda_satabsearch_tpu.eval import acceptance as jacc  # noqa: E402
 from cuda_satabsearch_tpu.eval import roc as jroc  # noqa: E402
 from cuda_satabsearch_tpu_torch.eval import acceptance as tacc  # noqa: E402
+from cuda_satabsearch_tpu_torch.eval.acceptance_eval import (  # noqa: E402
+    DB586, FIXTURES, GOLDEN, QUERIES, load_scores, parity_row)
 from cuda_satabsearch_tpu_torch.eval import roc as troc  # noqa: E402
-
-import chip_smoke  # noqa: E402  (the repository root is on sys.path)
 
 
 def _score_dicts(seed, n=300):
@@ -59,18 +60,17 @@ def test_roc_equal_jax_package(seed):
 
 
 def test_golden_scores_read_every_entry():
-    for q in chip_smoke.GATE_QUERIES:
+    for q in QUERIES:
         for r in (128, 4096):
-            gold = chip_smoke.golden_scores(os.path.join(
-                chip_smoke.GOLDEN, f"{q}_small_r{r}.out"))
+            gold = load_scores(os.path.join(GOLDEN, f"{q}_small_r{r}.out"))
             assert len(gold) == 586, (q, r)
 
 
 def test_cpu_parity_row_equals_jax_package():
     """d1ubia_ at r = 8 on the 586-entry DB against the oracle's r = 128
-    output: the port's row (chip_smoke.parity_row on the plain engine,
-    CPU) == the JAX package's (``-c``: its XLA engine on the CPU, ranked
-    as scripts/acceptance_eval.py ranks)."""
+    output: the port's row (acceptance_eval.parity_row on the plain
+    engine, CPU) == the JAX package's (``-c``: its XLA engine on the CPU,
+    ranked as scripts/acceptance_eval.py ranks)."""
     from cuda_satabsearch_tpu.io.pack import pack_query as jpack_query
     from cuda_satabsearch_tpu.io.parser import parse_search_input
     from cuda_satabsearch_tpu.session import (
@@ -79,18 +79,17 @@ def test_cpu_parity_row_equals_jax_package():
     from cuda_satabsearch_tpu_torch.session import (SearchSession,
                                                     SessionConfig)
 
-    jsess = JSession(chip_smoke.DB586, JConfig(maxstart=8, backend="xla"))
-    with open(os.path.join(chip_smoke.FIXTURES, "d1ubia_.input")) as fp:
+    jsess = JSession(DB586, JConfig(maxstart=8, backend="xla"))
+    with open(os.path.join(FIXTURES, "d1ubia_.input")) as fp:
         query = jpack_query(parse_search_input(fp).queries[0])
     res = jsess.search(query, lorder=True, lsoln=False)
     ours = {res.names[i]: norm2(int(res.scores[i]), 8, int(res.orders[i]))
             for i in range(res.nentries)}
-    ref = jacc.parity_report(ours, chip_smoke.golden_scores(os.path.join(
-        chip_smoke.GOLDEN, "d1ubia__small_r128.out")))
+    ref = jacc.parity_report(ours, load_scores(os.path.join(
+        GOLDEN, "d1ubia__small_r128.out")))
 
-    sess = SearchSession(chip_smoke.DB586, SessionConfig(maxstart=8,
-                                                         device="cpu"))
-    got, ms = chip_smoke.parity_row(sess, "d1ubia_", 128)
+    sess = SearchSession(DB586, SessionConfig(maxstart=8, device="cpu"))
+    got, ms = parity_row(sess, "d1ubia_", 128)
     assert got.__dict__ == ref.__dict__
     assert got.row() == ref.row()
     assert ms > 0

@@ -12,6 +12,12 @@ import pytest
 pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# every module of the JAX package's eval/ has its counterpart, plus the
+# three drivers that search (the JAX package's scripts/)
+EVAL_MODULES = tuple(f"eval.{m}" for m in (
+    "roc", "acceptance", "results", "gumbelfit", "fischer", "nh3d", "cops",
+    "scop", "timestab", "tables", "plots", "adapters", "extrunner",
+    "acceptance_eval", "make_eval_artifact", "gumbel_fit_artifact"))
 
 
 def _port_modules():
@@ -37,8 +43,8 @@ def test_every_module_imports_without_jax():
     assert "cuda_satabsearch_tpu_torch.ops.sa_kernel" in mods
     assert "cuda_satabsearch_tpu_torch.cli" in mods
     assert "cuda_satabsearch_tpu_torch.core.warmup" in mods
-    for name in ("io.native", "io.writer", "eval.roc", "eval.acceptance",
-                 "parallel.mesh", "parallel.distributed"):
+    for name in ("io.native", "io.writer", "parallel.mesh",
+                 "parallel.distributed") + EVAL_MODULES:
         assert f"cuda_satabsearch_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -48,6 +54,25 @@ def test_every_module_imports_without_jax():
         "             or m.startswith(('jax.', 'jaxlib', 'ml_dtypes'))\n"
         "             or m == 'cuda_satabsearch_tpu'\n"
         "             or m.startswith('cuda_satabsearch_tpu.'))\n"
+        "print('BAD', bad)\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
+def test_eval_modules_import_without_scipy_or_matplotlib():
+    """Every module of eval/ (the CLI's __main__ too) imports without
+    jax, scipy or matplotlib: scipy is imported by a Gumbel fit and
+    matplotlib by a plot, and the card's host has no matplotlib."""
+    mods = [f"cuda_satabsearch_tpu_torch.{m}"
+            for m in EVAL_MODULES + ("eval.__main__",)]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'scipy', 'matplotlib',\n"
+        "              'cuda_satabsearch_tpu'))\n"
         "print('BAD', bad)\n")
     res = _run(code)
     assert res.returncode == 0, res.stderr
