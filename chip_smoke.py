@@ -5,25 +5,36 @@
 Builds the kernel library (the SA search kernel and the start-up
 kernel) from cuda_satabsearch_tpu_torch/csrc/ with nvcc, one process per
 source, while the native DB loader (native/satab_io.cpp) builds with
-g++; holds each kernel against its plain PyTorch version on the card,
-drives the port's main paths (the ``torchsatabsearch`` CLI, the
-acceptance gate, the sharded search) on the 586-entry fixture DB, and
-times a 14291-entry ASTRAL-like synthetic DB.  Phases:
+g++, and prints ptxas's registers, shared memory and spills, and each
+launch class's CTAs per SM; holds each kernel against its plain PyTorch
+version on the card, drives the port's main paths (the
+``torchsatabsearch`` CLI, the acceptance gate, the sharded search) on
+the 586-entry fixture DB, and times a 14291-entry ASTRAL-like synthetic
+DB.  Phases:
 
 0. start-up kernel vs x + 1 on f32[8, 128] and on an odd size: bitwise,
    both timed per call (CUDA events over a loop) and device-only
    (torch.profiler);
-1. SA kernel vs plain engine on a supplied stream: bitwise scores and
-   maps, including c_par 128 x r_seq 32 (the r = 4096 split);
-2. kernel's in-kernel threefry stream vs the plain engine on the stream
-   ops/rng.py makes on the card: bitwise, the same cases;
+1. SA kernel vs its plain version (ops/engine.search_plan_plain) on a
+   supplied stream: bitwise scores and maps, on launch plans that mix
+   bucket widths 8-112 in both launch classes with padding rows, K 1-3
+   queries of mixed orders, LORDER / LSOLN T/F, c_par 100 / 128, r_seq
+   1 / 3, and c_par 128 x r_seq 32 (the r = 4096 split);
+2. the same cases on the seeded stream: the kernel derives every key
+   from (seed, tag, file-order index) itself, the plain version takes
+   them from ops/rng.entry_keys: bitwise;
 3. CLI main path, d1ubia_ query vs the 586-entry DB at r=128: the
    reference's top 3, scores equal to the plain engine's on the card,
-   and both kernels' launch counters show the path ran through them;
+   at most two SA launches and the start-up kernel's launch; the
+   profiler's device launches of one ``search``, none of them a torch
+   kernel before the first SA launch;
 4. multiquery.input (8/13/101-SSE queries): batched search_many equals
    per-query search, bitwise;
-5. timings: kernel vs plain on the 586-entry DB, and the 14291-entry
-   synthetic DB per query and batched;
+5. timings, in one process: one plan per bucket in series (the schedule
+   before launch plans) against the full plan (two launches), per
+   bucket and in all on the 586-entry DB (CUDA events) with the plain
+   version, and the wall and device idle share of a whole search on the
+   586-entry and the 14291-entry synthetic DB;
 6. native DB loader vs Python parse + pack, bitwise, on the 586-entry
    fixture and on the synthetic DB written by io/writer.py, both timed;
 7. acceptance gate: d1ubia_, d1ae6h1 and d2phlb1 at r = 128 and
@@ -33,8 +44,8 @@ times a 14291-entry ASTRAL-like synthetic DB.  Phases:
 8. sharded vs unsharded search, bitwise on scores and maps, on the mesh
    [cuda:0, cuda:0] and on all visible devices, on both DBs, timed;
 9. the first and second search of fresh processes running the CLI on
-   d1ubia_.input, with the full start-up and with the start-up kernel
-   alone;
+   d1ubia_.input, with the full start-up (the first must take at most
+   twice the second) and with the start-up kernel alone;
 10. the evaluation path on the card: the three evaluation drivers of
    cuda_satabsearch_tpu_torch/eval/ into a temporary directory.
    ``make_eval_artifact`` runs multiquery.input through the CLI in a
@@ -45,9 +56,11 @@ times a 14291-entry ASTRAL-like synthetic DB.  Phases:
    writes its report (verdict PASS); the SA kernel's launch counter must
    move in each.
 
-Prints one line per phase, then a JSON line with the kernels' numbers,
-then ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
-without that line when there is no CUDA device or any phase fails.
+Prints one line per phase, then a JSON line with the kernels' numbers
+(launches on the main path, error against the plain version, times,
+the bound and what sets it), then ``{"ok": true, "device": {...}}`` as
+the last line.  Exits non-zero without that line when there is no CUDA
+device or any phase fails.
 """
 
 import concurrent.futures
@@ -143,43 +156,51 @@ def read_query(name):
         return [pack_query(q) for q in parse_search_input(fp).queries]
 
 
+# the widths of a case's plan: a narrow and one or two wide buckets,
+# cycling so that every width of both classes is covered
+PLAN_WIDTHS = ((8, 48), (16, 64, 112), (24, 80), (32, 48, 112), (8, 64),
+               (16, 80, 112), (24, 48), (32, 64, 80))
+
+
 def kernel_cases(dev):
-    """Random (queries, bucket) problems at the main path's shapes:
-    bucket widths d2 x query orders n1, each with two of the 32
-    combinations of LORDER, LSOLN, c_par, r_seq and K (all 32 used),
-    then four cases at c_par 128 x r_seq 32 (the acceptance gate's
-    r = 4096) with 3 entries."""
+    """Random (queries, plan) problems at the main path's shapes: launch
+    plans over two or three buckets, both launch classes, 2 or 3
+    entries per bucket padded to 3 rows (padding rows included), query
+    orders n1, each of the 16 combinations of LORDER, LSOLN, c_par and
+    r_seq once with K = 1, 2 or 3, then two cases at c_par 128 x r_seq
+    32 (the acceptance gate's r = 4096)."""
     from cuda_satabsearch_tpu_torch.io.pack import pack_database, pack_query
     from cuda_satabsearch_tpu_torch.ops.common import round8
     from cuda_satabsearch_tpu_torch.ops.kernel_search import (
-        pack_queries, prepare_bucket)
+        make_plan, pack_queries, prepare_bucket)
 
     rng = np.random.default_rng(2024)
-    combos = list(itertools.product((True, False), (True, False), (128, 100),
-                                    (1, 2), (1, 3)))
-    shapes = list(itertools.product((8, 16, 48, 112), (5, 8, 13, 19, 101)))
-    pairs = list(zip(shapes * 2, combos + combos[:8]))
-    # c_par 128 x r_seq 32, the split of r = 4096, at small E
-    pairs += [((16, 19), (True, False, 128, 32, 1)),
-              ((24, 19), (False, True, 128, 32, 3)),
-              ((112, 19), (True, True, 128, 32, 1)),
-              ((32, 13), (True, False, 128, 32, 3))]
-    for ci, ((d2, n1), combo) in enumerate(pairs):
+    combos = [(*c, (1, 2, 3)[i % 3]) for i, c in enumerate(itertools.product(
+        (True, False), (True, False), (128, 100), (1, 3)))]
+    n1s = (5, 8, 13, 19, 101)
+    pairs = [((PLAN_WIDTHS[i % len(PLAN_WIDTHS)], n1s[i % len(n1s)]), c)
+             for i, c in enumerate(combos)]
+    pairs += [(((16, 112), 19), (True, True, 128, 32, 1)),
+              (((8, 48), 13), (False, False, 128, 32, 3))]
+    for ci, ((widths, n1), combo) in enumerate(pairs):
         lorder, lsoln, c_par, r_seq, K = combo
         n1r = round8(n1)
         orders = [n1, max(n1r - 7, 2), n1r][:K]
         queries = [pack_query(random_entry(rng, o, f"q{k}"))
                    for k, o in enumerate(orders)]
-        lo = max(2, d2 - 7) if d2 > 8 else 2
-        E = 5 if r_seq < 32 else 3
-        entries = [random_entry(rng, int(o), f"e{i}")
-                   for i, o in enumerate(rng.integers(lo, d2 + 1, size=E))]
-        bucket = prepare_bucket(
-            pack_database(entries, buckets=(d2, 112) if d2 < 112 else (112,)
-                          ).buckets[0], dev)
+        caps = (8, 16, 24, 32, 48, 64, 80, 112)
+        entries = []
+        for d2 in widths:
+            lo = caps[caps.index(d2) - 1] + 1 if d2 > 8 else 2
+            for _ in range(int(rng.integers(2, 4))):
+                o = int(rng.integers(lo, min(d2, 111) + 1))
+                entries.append(random_entry(rng, o, f"e{len(entries)}"))
+        rng.shuffle(entries)
+        db = pack_database(entries, pad_to=3)
+        plan = make_plan([prepare_bucket(b, dev) for b in db.buckets])
         q = pack_queries(queries, n1r, dev)
         yield ci, dict(lorder=lorder, lsoln=lsoln, c_par=c_par, r_seq=r_seq,
-                       K=K, d2=d2, n1=n1), q, bucket
+                       K=K, widths=widths, n1=n1), q, plan
 
 
 def compare(a, b):
@@ -226,6 +247,37 @@ def device_ms(fn, reps):
     return us / 1e3 / reps, len(kernels)
 
 
+def device_events(fn):
+    """The device activities (kernels and copies) of one call of
+    ``fn()``, synchronised, in torch.profiler's trace: [(start_us,
+    end_us, name)] sorted by start."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def busy_us(events) -> float:
+    """Device busy time: the union of the events' intervals (the two
+    launch classes of a plan run at the same time)."""
+    busy, end = 0.0, float("-inf")
+    for s, e, _ in events:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def is_copy(name: str) -> bool:
+    return name.startswith(("Memcpy", "Memset"))
+
+
 def phase0(dev, out):
     from cuda_satabsearch_tpu_torch.core.warmup import SHAPE, add_one
 
@@ -265,54 +317,59 @@ def phase0(dev, out):
 def phase1(dev, out):
     from cuda_satabsearch_tpu_torch.ops import rng
     from cuda_satabsearch_tpu_torch.ops.common import slots_per_restart
-    from cuda_satabsearch_tpu_torch.ops.engine import search_plain
+    from cuda_satabsearch_tpu_torch.ops.engine import search_plan_plain
     from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
 
     urng = np.random.default_rng(7)
-    worst, n = 0, 0
-    for ci, cfg, q, b in kernel_cases(dev):
+    worst, n, launches = 0, 0, 0
+    for ci, cfg, q, plan in kernel_cases(dev):
         n1r = q[0].shape[1]
         P = slots_per_restart(n1r)
-        E = b.types.shape[0]
-        shape = (cfg["K"], E, cfg["r_seq"], P, cfg["c_par"])
+        shape = (cfg["K"], plan.nentries, cfg["r_seq"], P, cfg["c_par"])
         u = torch.from_numpy(urng.random(shape, dtype=np.float32)).to(dev)
         u = rng.log_acc_slots(u, n1r).contiguous()
         kw = dict(c_par=cfg["c_par"], r_seq=cfg["r_seq"],
                   lorder=cfg["lorder"], lsoln=cfg["lsoln"])
-        got = sa_search(*q, b.types, b.tab, b.dmat, b.n2, uniforms=u, **kw)
+        before = sa_search.launches
+        got = sa_search(*q, plan, uniforms=u, **kw)
         torch.cuda.synchronize()
-        ref = search_plain(*q, b.types, b.tab, b.dmat, b.n2, uniforms=u, **kw)
+        launches = max(launches, sa_search.launches - before)
+        ref = search_plan_plain(*q, plan, uniforms=u, **kw)
         err = compare(got, ref)
         if err:
             raise AssertionError(f"phase1 case {ci} {cfg}: max |diff| {err}")
         worst, n = max(worst, err), n + 1
-    say(f"phase1 supplied stream, kernel == plain on the card: {n} cases, "
-        f"max |diff| {worst} (tolerance 0: bitwise)")
+    say(f"phase1 supplied stream, plan kernel == plain plan on the card: "
+        f"{n} cases (plans of widths {sorted(set(itertools.chain(*PLAN_WIDTHS)))}"
+        f", both classes, padding rows), max |diff| {worst} (tolerance 0: "
+        f"bitwise); at most {launches} launches per plan")
+    if launches != 2:
+        raise AssertionError("a two-class plan did not take two launches")
     return worst
 
 
 def phase2(dev, out):
     from cuda_satabsearch_tpu_torch.ops import rng
-    from cuda_satabsearch_tpu_torch.ops.engine import search_plain
+    from cuda_satabsearch_tpu_torch.ops.engine import search_plan_plain
     from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
 
     worst, n = 0, 0
-    for ci, cfg, q, b in kernel_cases(dev):
-        E = b.types.shape[0]
-        keys = rng.entry_keys(1234, list(range(ci, ci + cfg["K"])),
-                              np.arange(E), device=dev)
-        kw = dict(c_par=cfg["c_par"], r_seq=cfg["r_seq"],
-                  lorder=cfg["lorder"], lsoln=cfg["lsoln"])
-        got = sa_search(*q, b.types, b.tab, b.dmat, b.n2, keys=keys, **kw)
+    for ci, cfg, q, plan in kernel_cases(dev):
+        # tags beyond 2**31 too: the kernel takes their uint32 bits
+        tags = [ci, 2 ** 31 + ci, 2 ** 32 + 7][:cfg["K"]]
+        kw = dict(seed=1234 + ci, tags=tags, c_par=cfg["c_par"],
+                  r_seq=cfg["r_seq"], lorder=cfg["lorder"],
+                  lsoln=cfg["lsoln"])
+        got = sa_search(*q, plan, **kw)
         torch.cuda.synchronize()
-        ref = search_plain(*q, b.types, b.tab, b.dmat, b.n2, keys=keys, **kw)
+        ref = search_plan_plain(*q, plan, **kw)
         err = compare(got, ref)
         if err:
             raise AssertionError(f"phase2 case {ci} {cfg}: max |diff| {err}")
         worst, n = max(worst, err), n + 1
-    say(f"phase2 in-kernel threefry == plain on ops/rng.py's stream "
-        f"(ln_f32 on the card): {n} cases, max |diff| {worst} "
-        f"(tolerance 0: bitwise)")
+    say(f"phase2 seeded stream, keys derived in the kernel == plain plan on "
+        f"ops/rng.entry_keys' stream (ln_f32 on the card): {n} cases, max "
+        f"|diff| {worst} (tolerance 0: bitwise)")
     # ln u on the card vs on the CPU over every non-zero uniform
     # (k * 2**-23): where they differ, -c and the card may part ways
     grid = torch.arange(1, 2 ** 23, dtype=torch.float64).mul_(
@@ -360,13 +417,22 @@ def phase3(dev, out):
         f"launches, {wall:.3f} s wall (incl. parse)")
     if len(names) != 586 or {n for n, _ in top3} != TOP3:
         raise AssertionError(f"top 3 {top3} != {sorted(TOP3)}")
-    if launches < 1:
-        raise AssertionError("the CLI never launched the SA kernel")
+    if not 1 <= launches <= 2:
+        raise AssertionError(f"the CLI query took {launches} SA kernel "
+                             f"launches (1 or 2 expected)")
     if warm_launches < 1:
         raise AssertionError("the CLI never launched the start-up kernel")
+    prof = in_fresh_process("profile_one_search")
+    out["device_launches"] = prof["launches"]
+    if prof["before"]:
+        raise AssertionError(f"torch kernels run before the SA kernel: "
+                             f"{prof['before']}")
+    if prof["sa_kernels"] != 2:
+        raise AssertionError(f"{prof['sa_kernels']} SA kernels in one "
+                             f"search (2 expected)")
+    query = read_query("d1ubia_.input")[0]
     plain = SearchSession(DB586, SessionConfig(maxstart=128, backend="torch",
                                                 device=str(dev)))
-    query = read_query("d1ubia_.input")[0]
     ref = plain.search(query, lorder=True, lsoln=False, query_tag=0)
     diff = int(np.abs(ref.scores - scores).max())
     say(f"phase3 CLI scores vs the plain engine on the card: max |diff| "
@@ -374,6 +440,49 @@ def phase3(dev, out):
     if diff:
         raise AssertionError("kernel and plain scores differ on the CLI path")
     return diff
+
+
+def in_fresh_process(task: str) -> dict:
+    """Run ``task()`` of this file in a fresh process on the card, relay
+    its lines and return the JSON object it prints last.  torch.profiler
+    is used there: in one run of this script, profiles taken after
+    phases 1-2 recorded none or part of a search's device activities,
+    while a fresh process recorded all of them."""
+    res = subprocess.run([sys.executable, "-c",
+                          f"import chip_smoke; chip_smoke.{task}()"],
+                         capture_output=True, text=True, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT), timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"{task} failed in a fresh process:\n"
+                             f"{res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        say(line)
+    return json.loads(lines[-1])
+
+
+def profile_one_search():
+    """The device activities of one warm search (586 entries, d1ubia_,
+    r = 128) in torch.profiler; prints a JSON summary last."""
+    from cuda_satabsearch_tpu_torch.session import (SearchSession,
+                                                    SessionConfig)
+
+    query = read_query("d1ubia_.input")[0]
+    sess = SearchSession(DB586, SessionConfig(maxstart=128, device="cuda:0"))
+    sess.search(query, lsoln=False, query_tag=0)
+    events = device_events(lambda: sess.search(query, lsoln=False,
+                                               query_tag=0))
+    names = [n for _, _, n in events]
+    sa = [i for i, n in enumerate(names) if "sa_plan_kernel" in n]
+    before = [n for n in names[:sa[0] if sa else len(names)]
+              if not is_copy(n)]
+    kernels = [n for n in names if not is_copy(n)]
+    say(f"phase3 one search (586 entries, r=128) in torch.profiler, fresh "
+        f"process: {len(events)} device launches ({len(kernels)} kernels, "
+        f"{len(events) - len(kernels)} copies): {[n[:40] for n in names]}; "
+        f"torch kernels before the first SA launch: {len(before)}")
+    print(json.dumps({"launches": len(events), "sa_kernels": len(sa),
+                      "before": before}))
 
 
 def phase4(dev, out):
@@ -397,44 +506,165 @@ def phase4(dev, out):
     return worst
 
 
-def time_buckets(fn, sess, query, reps):
-    """Mean ms of one query's launches over every bucket (CUDA events)."""
-    from cuda_satabsearch_tpu_torch.ops import rng
+# Operation count of the SA search, for its bound (int32 operations):
+# one threefry2x32 draw is 20 rounds of add, rotate and xor (60), 5 key
+# injections (15), 2 initial adds and 3 operations to make the float;
+# a move is three draws and, per query SSE, ~8 operations of the delta;
+# a restart adds a key, n1 thinit draws and ~8 per pair of the initial
+# score.
+THREEFRY_OPS = 80
+DELTA_OPS = 8
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate (NVIDIA H100 datasheet)
+INT32_LANES = 64  # INT32 lanes per SM (Hopper architecture white paper)
+
+
+def max_sm_clock_mhz() -> float:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return float(res.stdout.strip().splitlines()[0])
+
+
+def sa_bound(plan, n1s, c_par, r_seq, lsoln, maxiter=100):
+    """(bound ms, "operations" or "bytes", int32 ops, bytes) of one SA
+    search of queries of orders ``n1s`` against ``plan``: its int32
+    operations over SMs x INT32_LANES x the maximum SM clock, and its
+    bytes (each input read once, each output written once) over
+    HBM_BYTES_S; the larger sets the bound.  Only real entries count:
+    padding rows are not work the data needs."""
     from cuda_satabsearch_tpu_torch.ops.common import round8
-    from cuda_satabsearch_tpu_torch.ops.kernel_search import pack_queries
+
+    nreal = int((plan.index >= 0).sum())
+    per_restart = sum(maxiter * (3 * THREEFRY_OPS + DELTA_OPS * n1)
+                      + (n1 + 1) * THREEFRY_OPS + 4 * n1 * n1 for n1 in n1s)
+    ops = nreal * c_par * r_seq * per_restart
+    n1r, K = round8(max(n1s)), len(n1s)
+    nbytes = sum(len(b.index) * (b.dim + 5 * b.dim * b.dim + 8)
+                 for b in plan.buckets)
+    nbytes += K * (n1r + 5 * n1r * n1r + 8)
+    nbytes += K * plan.nentries * 4 * (1 + (n1r if lsoln else 0))
+    props = torch.cuda.get_device_properties(0)
+    t_ops = ops / (props.multi_processor_count * INT32_LANES
+                   * max_sm_clock_mhz() * 1e6)
+    t_bytes = nbytes / HBM_BYTES_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def schedules(sess):
+    """{schedule: plans} of one session's single shard: one plan per
+    bucket, in series (the schedule before launch plans), and the full
+    plan."""
+    from cuda_satabsearch_tpu_torch.ops.kernel_search import make_plan
+
+    (full,) = sess.device_db
+    return {"one plan per bucket": [make_plan([b]) for b in full.buckets],
+            "full plan": [full]}
+
+
+def time_schedules(name, sess, query, card):
+    """Kernel time (CUDA events), search wall and device idle share of
+    both schedules, in turns (per bucket, full, full, per bucket)."""
+    from cuda_satabsearch_tpu_torch.ops.kernel_search import (
+        pack_queries, search_group)
+    from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
 
     dev = sess.device
-    q = pack_queries([query], round8(query.order), dev)
-    (buckets,) = sess.device_db  # one shard: the whole DB
-    keys = [rng.entry_keys(1234, [0], b.index, device=dev) for b in buckets]
-    kw = dict(c_par=128, r_seq=1, lorder=True, lsoln=False)
+    q = pack_queries([query], 8, dev)
+    kw = dict(seed=1234, tags=[0], c_par=128, r_seq=1, lorder=True,
+              lsoln=False)
+    res, by_label = {}, schedules(sess)
+    for label in ("one plan per bucket", "full plan", "full plan",
+                  "one plan per bucket"):
+        plans = by_label[label]
 
-    def run():
-        for b, k in zip(buckets, keys):
-            fn(*q, b.types, b.tab, b.dmat, b.n2, keys=k, **kw)
+        def kernels():
+            for plan in plans:
+                sa_search(*q, plan, **kw)
 
-    return cuda_ms(run, reps)
+        def search():
+            search_group([query], plans, sess.nentries, lorder=True,
+                         lsoln=False, seed=1234, query_tags=[0], c_par=128,
+                         r_seq=1, backend="cuda")
+
+        ms = cuda_ms(kernels, 20)
+        search()
+        walls = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            search()  # ends in the drain
+            walls.append((time.perf_counter() - t0) * 1e3)
+        events = device_events(search)
+        wall = float(np.median(walls))
+        idle = 1.0 - busy_us(events) / 1e3 / wall
+        res.setdefault(label, []).append((ms, wall, idle, len(events)))
+    for label, rows in res.items():
+        say(f"phase5 {name}, {label} ({len(by_label[label])} plans): "
+            f"kernels {' / '.join(f'{r[0]:.4f}' for r in rows)} ms "
+            f"(CUDA events, 20 reps); search wall median of 7 "
+            f"{' / '.join(f'{r[1]:.4f}' for r in rows)} ms; device idle "
+            f"share {' / '.join(f'{r[2]:.3f}' for r in rows)}; "
+            f"{rows[0][3]} device launches; card {card}")
+    return res
+
+
+def profile_schedules():
+    """time_schedules on the 586-entry and the 14291-entry DB; prints
+    {db: {schedule: [(kernel ms, wall ms, idle share, launches)]}}
+    last."""
+    from cuda_satabsearch_tpu_torch.session import (SearchSession,
+                                                    SessionConfig)
+
+    card = card_line()
+    query = read_query("d1ubia_.input")[0]
+    res = {}
+    for name, dbfile, entries in (
+            ("586 entries", DB586, None),
+            ("14291 entries", "<synthetic>", synthetic_entries(14291))):
+        sess = SearchSession(dbfile, SessionConfig(maxstart=128,
+                                                   device="cuda:0"),
+                             entries=entries)
+        res[name] = time_schedules(name, sess, query, card)
+    print(json.dumps(res))
 
 
 def phase5(dev, out, card):
-    from cuda_satabsearch_tpu_torch.ops.engine import search_plain
+    from cuda_satabsearch_tpu_torch.ops.engine import search_plan_plain
+    from cuda_satabsearch_tpu_torch.ops.kernel_search import (make_plan,
+                                                              pack_queries)
     from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
     from cuda_satabsearch_tpu_torch.session import (SearchSession,
                                                     SessionConfig)
 
     query = read_query("d1ubia_.input")[0]
     sess = SearchSession(DB586, SessionConfig(maxstart=128, device=str(dev)))
-    # plain, kernel, kernel, plain
-    p1 = time_buckets(search_plain, sess, query, 2)
-    k1 = time_buckets(sa_search, sess, query, 20)
-    k2 = time_buckets(sa_search, sess, query, 20)
-    p2 = time_buckets(search_plain, sess, query, 2)
+    (full,) = sess.device_db
+    q = pack_queries([query], 8, dev)
+    kw = dict(seed=1234, tags=[0], c_par=128, r_seq=1, lorder=True,
+              lsoln=False)
+    # plain, kernel, kernel, plain: the full plan, one query
+    p1 = cuda_ms(lambda: search_plan_plain(*q, full, **kw), 2)
+    k1 = cuda_ms(lambda: sa_search(*q, full, **kw), 20)
+    k2 = cuda_ms(lambda: sa_search(*q, full, **kw), 20)
+    p2 = cuda_ms(lambda: search_plan_plain(*q, full, **kw), 2)
     out["ms"], out["plain_ms"] = (k1 + k2) / 2, (p1 + p2) / 2
+    bound, by, ops, nbytes = sa_bound(full, [query.order], 128, 1, False)
+    out["bound_ms"], out["bound_by"] = bound, by
     it586 = sess.nentries * 128 * 100
-    say(f"phase5 586 entries, 8-SSE query, r=128, one query over all "
-        f"buckets: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-        f"{p2:.4f} ms (CUDA events); kernel {it586 / (k1 + k2) * 2e-3:.1f} "
-        f"M it/s; card {card}")
+    say(f"phase5 586 entries, 8-SSE query, r=128, the full plan: kernel "
+        f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms (CUDA "
+        f"events); kernel {it586 / (k1 + k2) * 2e-3:.1f} M it/s; bound "
+        f"{bound:.4f} ms set by {by} ({ops} int32 ops at "
+        f"{max_sm_clock_mhz():.0f} MHz max SM clock, {nbytes} bytes), "
+        f"share of bound {bound / out['ms']:.4f}; card {card}")
+    cells = []
+    for b in full.buckets:
+        plan = make_plan([b])
+        cells.append(f"d2 {b.dim} x {plan.nentries}: "
+                     f"{cuda_ms(lambda: sa_search(*q, plan, **kw), 10):.4f}")
+    say(f"phase5 586 entries, one plan per bucket alone (CUDA events, 10 "
+        f"reps, ms): {'; '.join(cells)}")
 
     t0 = time.perf_counter()
     big = SearchSession("<synthetic>", SessionConfig(maxstart=128,
@@ -442,28 +672,26 @@ def phase5(dev, out, card):
                         entries=synthetic_entries(14291))
     say(f"phase5 synthetic DB: {big.nentries} entries built and uploaded in "
         f"{time.perf_counter() - t0:.1f} s")
-    big.search(query, lsoln=False)  # warm-up
-    walls = []
-    for rep in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = big.search(query, lsoln=False, query_tag=rep)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    (bfull,) = big.device_db
+    cells = []
+    for b in bfull.buckets:
+        plan = make_plan([b])
+        cells.append(f"d2 {b.dim} x {plan.nentries}: "
+                     f"{cuda_ms(lambda: sa_search(*q, plan, **kw), 10):.4f}")
+    say(f"phase5 14291 entries, one plan per bucket alone (CUDA events, 10 "
+        f"reps, ms): {'; '.join(cells)}")
+    res = in_fresh_process("profile_schedules")
+    out["large_ms"] = min(r[1] for r in res["14291 entries"]["full plan"])
     it = big.nentries * 128 * 100
-    best = min(walls)
-    if not np.all(res.scores >= 0):
-        raise AssertionError("negative max score on the synthetic DB")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     big.search_many([query] * 8, lsoln=False)
     torch.cuda.synchronize()
     wall8 = time.perf_counter() - t0
-    out["large_ms"] = best * 1e3
-    say(f"phase5 14291 entries, 8-SSE query, r=128: per query "
-        f"{[round(w * 1e3, 3) for w in walls]} ms wall, best "
-        f"{it / best / 1e6:.1f} M it/s; 8 queries batched {wall8 * 1e3:.3f} "
-        f"ms, {8 * it / wall8 / 1e6:.1f} M it/s; card {card}")
+    say(f"phase5 14291 entries, 8-SSE query, r=128: best search wall "
+        f"{out['large_ms']:.4f} ms, {it / out['large_ms'] / 1e3:.1f} M it/s; "
+        f"8 queries batched {wall8 * 1e3:.3f} ms, "
+        f"{8 * it / wall8 / 1e6:.1f} M it/s; card {card}")
 
 
 def packed_diff(a, b) -> list[str]:
@@ -645,14 +873,17 @@ def phase9(dev, out, card):
             if run["rc"] != 0 or len(run["search_ms"]) != 1:
                 raise AssertionError(f"CLI call {i} in a fresh process: "
                                      f"{run}")
-        out.setdefault("fresh", {})[variant] = [
-            r["search_ms"][0] for r in runs]
+        first, second = (r["search_ms"][0] for r in runs)
+        out.setdefault("fresh", {})[variant] = [first, second]
         say(f"phase9 fresh process, {variant}, two CLI calls on "
             f"d1ubia_.input -r 128: first search "
             f"{runs[0]['search_ms'][0]:.3f} ms, second "
             f"{runs[1]['search_ms'][0]:.3f} ms; start-up lines "
             f"{[r['startup'] for r in runs]}; process wall {wall:.1f} s; "
             f"card {card}")
+        if variant == "full start-up" and first > 2 * second:
+            raise AssertionError(f"a fresh process's first search took "
+                                 f"{first:.3f} ms, over twice its second")
 
 
 def phase10(dev, out, card):
@@ -756,6 +987,34 @@ def phase10(dev, out, card):
                                  "PASS")
 
 
+def report_occupancy(dev):
+    """Each launch class's CTAs per SM at its widest bucket (d2 32 and
+    112), n1r 8, c_par 128, LSOLN on, and the shared memory per CTA there
+    against the kernel's earlier layout of int8 planes."""
+    from cuda_satabsearch_tpu_torch.ops.sa_kernel import (load_library,
+                                                          occupancy, prepare)
+
+    prepare(dev)
+    lib = load_library().lib
+    for cls, d2 in (("narrow", 32), ("wide", 112)):
+        blocks, regs, local = occupancy(d2, 8, 128, True)
+        smem = lib.sa_search_smem_bytes(8, d2, 128, 1)
+        say(f"  {cls} class at d2 {d2}, n1r 8, c_par 128, LSOLN: {blocks} "
+            f"CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
+            f"{regs} registers, {local} local bytes per thread, {smem} B "
+            f"of shared memory per CTA")
+    # the earlier layout: f32 distances, int8 codes and types, int8 map,
+    # reverse and best planes, int32 reduction, each region 16-byte
+    # aligned
+    a16 = lambda x: -(-x // 16) * 16
+    old = sum(a16(x) for x in (4 * 8 * 8, 4 * 112 * 112, 8 * 8, 112 * 112,
+                               8, 112, 8 * 128, 112 * 128, 8 * 128,
+                               4 * 130))
+    say(f"  shared memory per CTA at n1r 8, d2 112, LSOLN, c_par 128: "
+        f"{lib.sa_search_smem_bytes(8, 112, 128, 1)} B (int8-plane layout: "
+        f"{old} B)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -784,8 +1043,9 @@ def main() -> int:
         f"{os.path.relpath(native_so, ROOT)}; both in "
         f"{time.perf_counter() - t0:.1f} s")
     for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Function prop" in line:
             say(f"  ptxas: {line.strip()}")
+    report_occupancy(dev)
 
     out, failed = {}, []
     errs = {}  # phase -> max |diff| against the plain version
@@ -809,19 +1069,30 @@ def main() -> int:
             failed.append(name)
         say(f"({name}: {time.perf_counter() - t0:.1f} s)")
     sa_errs = [e for n, e in errs.items() if n != "phase0"]
+    share = lambda b, t: None if b is None or not t else b / t
+    # start-up kernel: f32[8, 128] read once and written once
+    warm_bound = 2 * 4 * 8 * 128 / HBM_BYTES_S * 1e3
     say(json.dumps({"kernels": [{
         "name": "sa_search", "route": "cuda",
         "source": "cuda_satabsearch_tpu_torch/csrc/sa_search.cu",
         "replaces": "cuda_satabsearch_tpu/ops/pallas_sa2.py:535",
         "launches": out.get("launches"),
+        "launches_per_query": out.get("launches"),
         "max_abs_err": max(sa_errs) if sa_errs else None,
-        "ms": out.get("ms"), "plain_ms": out.get("plain_ms")}, {
+        "ms": out.get("ms"), "plain_ms": out.get("plain_ms"),
+        "bound_ms": out.get("bound_ms"), "bound_by": out.get("bound_by"),
+        "bound_share": share(out.get("bound_ms"), out.get("ms")),
+        "library_ms": None}, {
         "name": "add_one", "route": "cuda",
         "source": "cuda_satabsearch_tpu_torch/csrc/warmup.cu",
         "replaces": "cuda_satabsearch_tpu/core/warmup.py:51",
         "launches": out.get("warm_launches"),
+        "launches_per_query": 0,
         "max_abs_err": errs.get("phase0"),
-        "ms": out.get("warm_ms"), "plain_ms": out.get("warm_plain_ms")}]}))
+        "ms": out.get("warm_ms"), "plain_ms": out.get("warm_plain_ms"),
+        "bound_ms": warm_bound, "bound_by": "bytes",
+        "bound_share": share(warm_bound, out.get("warm_ms")),
+        "library_ms": out.get("warm_plain_ms")}]}))
     if failed:
         say(f"FAILED: {failed}")
         return 1

@@ -7,11 +7,11 @@ search paid no first-use cost.  Here the same one-op kernel, o = x + 1
 on f32[8, 128] (csrc/warmup.cu, built into the library of
 ops/sa_kernel.py), is launched once when a search session starts; then
 the SA kernel's module is loaded and its shared-memory limit set
-(ops/sa_kernel.prepare), and ``rng.entry_keys`` runs once on one index
-and its keys are put in the kernel's format (ops/sa_kernel.key_bits),
-which loads the torch elementwise kernels a search's keys need (on an
-H100 their first use cost a fresh process's first search 76-103 ms).
-The three times are reported on stderr.
+(ops/sa_kernel.prepare), and then what a search touches around the
+kernel: the query tags' upload (ops/sa_kernel.upload_tags), the side
+stream and the fork and join events of a plan's two launch classes
+(ops/sa_kernel.launch_streams), and a drain.  The three times are
+reported on stderr.
 
 ``add_one`` runs the plain version (x + 1) on CPU tensors and launches
 the kernel on CUDA tensors, or raises.  ``add_one.launches`` counts
@@ -25,9 +25,8 @@ import time
 
 import torch
 
-from ..ops import rng
-from ..ops.sa_kernel import (check_tensor, device_guard, key_bits,
-                             load_library, prepare)
+from ..ops.sa_kernel import (check_tensor, device_guard, launch_streams,
+                             load_library, prepare, upload_tags)
 
 SHAPE = (8, 128)  # the JAX package's warm-up block
 
@@ -60,8 +59,9 @@ add_one.launches = 0
 
 def warm_backend(device: torch.device, log: bool = True) -> float:
     """Bring up ``device`` for searching: launch the start-up kernel once
-    and check its result, prepare the SA kernel, and make one entry's
-    key in the kernel's format.  Returns the wall seconds spent (0.0 on
+    and check its result, prepare the SA kernel, and bring up the launch
+    path of a search (a tags upload, the side stream, a fork and a join,
+    a drain).  Returns the wall seconds spent (0.0 on
     the CPU, where there is nothing to bring up)."""
     if device.type == "cpu":
         return 0.0
@@ -73,11 +73,19 @@ def warm_backend(device: torch.device, log: bool = True) -> float:
         raise RuntimeError("start-up kernel returned wrong values")
     prepare(device)
     t2 = time.perf_counter()
-    key_bits(rng.entry_keys(0, [0], [0], device=device)).cpu()
+    tags = upload_tags([0], device)
+    with device_guard(device):
+        current = torch.cuda.current_stream(device)
+        side, fork, join = launch_streams(current.device_index)
+        fork.record(current)
+        side.wait_event(fork)
+        join.record(side)
+        current.wait_event(join)
+    tags.cpu()
     t3 = time.perf_counter()
     if log:
         print(f"# start-up on {device}: CUDA context and kernel library "
               f"{(t1 - t0) * 1e3:.1f} ms, SA module prepare "
-              f"{(t2 - t1) * 1e3:.1f} ms, torch kernels "
+              f"{(t2 - t1) * 1e3:.1f} ms, launch path "
               f"{(t3 - t2) * 1e3:.1f} ms", file=sys.stderr)
     return t3 - t0

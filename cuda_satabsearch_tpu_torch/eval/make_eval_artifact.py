@@ -97,6 +97,18 @@ def _to_file(path: str, fn, argv) -> None:
         raise RuntimeError(f"{fn.__module__} {argv} exited {rc}")
 
 
+def write_manifest(path: str, runs: list[dict]) -> None:
+    """eval.timestab's manifest: one row per run, slowest first (the
+    speed-up baseline), its search seconds to the microsecond (the CLI
+    reports milliseconds to three decimals; a kernel row of a few ms
+    rounded to 0.01 s would be 0 and divide the speed-up by zero)."""
+    with open(path, "w") as fh:
+        fh.write("# label\tresults\tseconds  (slowest row = baseline)\n")
+        for run in sorted(runs, key=lambda r: -r["seconds"]):
+            fh.write(f"{run['label']}\t{run['results']}\t"
+                     f"{run['seconds']:.6f}\n")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m cuda_satabsearch_tpu_torch.eval.make_eval_artifact",
@@ -145,11 +157,7 @@ def main(argv=None) -> int:
         _to_file(os.path.join(out_dir, "auc_table.tex"), eval_main,
                  [first, "--gold", gold_path, "--roc50", "--latex"])
         manifest = os.path.join(out_dir, "timestab_manifest.tsv")
-        with open(manifest, "w") as fh:
-            fh.write("# label\tresults\tseconds  (slowest row = baseline)\n")
-            for run in sorted(runs, key=lambda r: -r["seconds"]):
-                fh.write(f"{run['label']}\t{run['results']}\t"
-                         f"{run['seconds']:.2f}\n")
+        write_manifest(manifest, runs)
         _to_file(os.path.join(out_dir, "timestab.tex"), timestab_main,
                  [manifest, "--gold", gold_path])
     except (FileNotFoundError, ValueError, RuntimeError) as e:

@@ -2,11 +2,13 @@
 
 Counterpart of cuda_satabsearch_tpu/ops/engine.py (``make_entry_search``
 :106-298), batched over (query, entry) rows and chains as written-out
-dims, with ``torch.gather`` for the takes.  It computes what the CUDA
-kernel (csrc/sa_search.cu, wrapper ops/sa_kernel.py) computes, on the
-same inputs, and is the reference the kernel is held against on the
-card.  It runs on CPU tensors (the ``-c`` path and the tests) and on
-CUDA tensors (``--backend torch``, and chip_smoke.py's comparisons).
+dims, with ``torch.gather`` for the takes.  ``search_plan_plain``
+computes what the CUDA kernel (csrc/sa_search.cu, wrapper
+ops/sa_kernel.py) computes for a launch plan, on the same inputs, by
+running ``search_plain`` bucket by bucket, and is the reference the
+kernel is held against on the card.  It runs on CPU tensors (the ``-c``
+path and the tests) and on CUDA tensors (``--backend torch``, and
+chip_smoke.py's comparisons).
 
 Semantics follow the JAX engine step for step: thinit (:142-158), the
 integer initial score over pairs i < k (:160-178), the LORDER window
@@ -79,6 +81,43 @@ def search_plain(qtypes, qtab, qdmat, n1s, types, tab, dmat, n2, *,
         maps.append(mp)
     scores = torch.cat(scores, dim=1)
     return scores, (torch.cat(maps, dim=1) if lsoln else None)
+
+
+def search_plan_plain(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0,
+                      tags=None, uniforms=None, c_par: int, r_seq: int,
+                      lorder: bool, lsoln: bool,
+                      params: SAParams = DEFAULTS):
+    """SA search of K queries against every bucket of a launch plan
+    (ops/kernel_search.make_plan), the arguments and results of the
+    kernel's wrapper ops/sa_kernel.sa_search: ``search_plain`` bucket by
+    bucket, with each bucket's keys from ``rng.entry_keys(seed, tags,
+    bucket.index)`` or its columns of the supplied ``uniforms``
+    f32[K, E, r_seq, P, c_par].  Returns (scores int32[K, E], maps
+    int32[K, E, n1r] or None), E = plan.nentries in the plan's order."""
+    if (tags is None) == (uniforms is None):
+        raise ValueError("give exactly one of tags / uniforms")
+    if torch.is_tensor(tags):
+        tags = tags.cpu().numpy()
+    K, n1r = qtypes.shape
+    scores = [torch.empty((K, 0), dtype=torch.int32, device=plan.device)]
+    maps = [torch.empty((K, 0, n1r), dtype=torch.int32, device=plan.device)]
+    off = 0
+    for b in plan.buckets:
+        E = len(b.index)
+        if tags is not None:
+            stream = dict(keys=rng.entry_keys(seed, tags, b.index,
+                                              device=plan.device))
+        else:
+            stream = dict(uniforms=uniforms[:, off:off + E])
+        s, m = search_plain(qtypes, qtab, qdmat, n1s, b.types, b.tab,
+                            b.dmat, b.n2, c_par=c_par, r_seq=r_seq,
+                            lorder=lorder, lsoln=lsoln, params=params,
+                            **stream)
+        off += E
+        scores.append(s)
+        maps.append(m)
+    return (torch.cat(scores, dim=1),
+            torch.cat(maps, dim=1) if lsoln else None)
 
 
 def _search_block(qtypes, qtab, qdmat, n1s, types, tab, dmat, n2,

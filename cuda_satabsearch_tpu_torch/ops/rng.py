@@ -15,8 +15,9 @@ The stream of entry ``e`` for query tag ``t`` and restart ``r`` is
 ``uniform(fold_in(fold_in(fold_in(PRNGKey(seed), t), e), r), (P, c_par))``,
 P = round8(n1) + 3*maxiter slots.  uint32 values are held in int64
 tensors and wrapped with ``& 0xffffffff`` after every add.  The CUDA
-kernel (csrc/sa_search.cu) draws the same stream in-kernel from the
-entry keys made here.
+kernel (csrc/sa_search.cu) derives the same keys from (seed, tag,
+index) and draws the same stream in-kernel; the plain engine makes them
+here.
 """
 
 from __future__ import annotations

@@ -3,10 +3,10 @@
 Counterpart of cuda_satabsearch_tpu/ops/search.py.  The DB is uploaded
 once per session (``upload_db``, the analog of the reference's one-time
 cudaMemcpy3D of the whole DB, cudaSaTabsearch.cu:924-963), whole or as
-entry shards over a mesh of devices; each search runs one launch per
-bucket per shard (ops/kernel_search.py) and returns results in
-database file order.  RNG keys derive from (seed, query tag, the
-entry's file-order index), as in the JAX package.
+entry shards over a mesh of devices, each shard with its launch plan;
+each search runs at most two launches per shard (ops/kernel_search.py)
+and returns results in database file order.  RNG keys derive from
+(seed, query tag, the entry's file-order index), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 from ..core.constants import DEFAULT_MAXSTART, DEFAULTS, SAParams
 from ..parallel.mesh import mesh_shards, shard_rows
 from .common import C_MAX
-from .kernel_search import DeviceBucket, prepare_bucket, search_group
+from .kernel_search import Plan, make_plan, prepare_bucket, search_group
 
 DEFAULT_SEED = 1234  # the reference's fixed seed (cudaSaTabsearch.cu:263,:871)
 
@@ -73,25 +73,29 @@ def resolve_backend(backend: str = "auto", device=None
     return ("cuda" if backend == "auto" else backend), dev
 
 
-def upload_db(db, devices) -> list[list[DeviceBucket]]:
-    """Upload a PackedDB (from either package's packer) once, as shards.
-    ``devices`` is one device (one shard: the whole DB) or a mesh
-    (parallel/mesh.make_mesh): shard first + i of the run's shards goes
-    to ``devices[i]`` and holds rows ``shard_rows`` of every bucket."""
+def upload_db(db, devices) -> list[Plan]:
+    """Upload a PackedDB (from either package's packer) once, as shards,
+    and make each shard's launch plan.  ``devices`` is one device (one
+    shard: the whole DB) or a mesh (parallel/mesh.make_mesh): shard
+    first + i of the run's shards goes to ``devices[i]`` and holds rows
+    ``shard_rows`` of every bucket."""
     if not isinstance(devices, (list, tuple)):
-        return [[prepare_bucket(b, devices) for b in db.buckets]]
+        dev = torch.device(devices)
+        return [make_plan([prepare_bucket(b, dev) for b in db.buckets], dev)]
     first, total = mesh_shards(devices)
-    return [[prepare_bucket(b, dev, shard_rows(b.size, total, first + i))
-             for b in db.buckets] for i, dev in enumerate(devices)]
+    return [make_plan([prepare_bucket(b, dev, shard_rows(b.size, total,
+                                                         first + i))
+                       for b in db.buckets], dev)
+            for i, dev in enumerate(devices)]
 
 
-def search_db_many(queries, db, shards: list[list[DeviceBucket]], *,
+def search_db_many(queries, db, shards: list[Plan], *,
                    maxstart: int = DEFAULT_MAXSTART, lorder: bool = True,
                    lsoln: bool = True, seed: int = DEFAULT_SEED,
                    query_tags, c_max: int = C_MAX, backend: str = "cuda",
                    gather: bool = False,
                    params: SAParams = DEFAULTS) -> list[SearchResult]:
-    """Search queries that share round8(order) in one launch per bucket
+    """Search queries that share round8(order) in at most two launches
     per shard (``shards`` from upload_db; ``gather``: all-gather the
     shards of a multi-process run)."""
     c_par, r_seq = choose_chains(maxstart, min(c_max, C_MAX))
@@ -105,7 +109,7 @@ def search_db_many(queries, db, shards: list[list[DeviceBucket]], *,
             for q, (s, m) in zip(queries, outs)]
 
 
-def search_db(query, db, shards: list[list[DeviceBucket]], *,
+def search_db(query, db, shards: list[Plan], *,
               query_tag: int = 0, **kw) -> SearchResult:
     """Search the whole packed DB for one query; results in database
     file order."""

@@ -14,7 +14,7 @@ mesh of devices (parallel/mesh.py), across the processes of a
 multi-process run too (parallel/distributed.py).
 
 On a card the session brings up each device once (core/warmup.py:
-the start-up kernel, the SA kernel's module, the entry-key kernels)
+the start-up kernel, the SA kernel's module, a search's launch path)
 after the DB load and before the upload, as the JAX package orders
 load -> warm -> upload, and reports the times on stderr.  There is no
 compile cache.
@@ -114,7 +114,7 @@ class SearchSession:
         """Search a stream of queries.  Each query's RNG tag is its
         position in the stream (as the JAX package's ``-c`` path
         numbers them); queries are grouped by round8(order), and each
-        group runs in one launch per bucket."""
+        group runs in at most two launches per shard."""
         tags = list(range(self._query_tag, self._query_tag + len(queries)))
         self._query_tag += len(queries)
         groups: dict[int, list[int]] = {}

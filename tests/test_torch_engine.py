@@ -22,7 +22,7 @@ from cuda_satabsearch_tpu_torch.ops import rng  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops.common import round8  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops.engine import search_plain  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops.kernel_search import (  # noqa: E402
-    pack_queries, prepare_bucket)
+    make_plan, pack_queries, prepare_bucket)
 from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search  # noqa: E402
 
 from conftest import random_entry  # noqa: E402
@@ -160,10 +160,12 @@ def _small_call(device):
 
 
 def test_wrapper_runs_plain_on_cpu_without_launching():
+    """The wrapper on a one-bucket plan with the seeded stream (seed,
+    tags, file-order index) == the plain engine on the same keys."""
     q, b, keys = _small_call("cpu")
     kw = dict(c_par=16, r_seq=2, lorder=True, lsoln=True)
     before = sa_search.launches
-    got = sa_search(*q, b.types, b.tab, b.dmat, b.n2, keys=keys, **kw)
+    got = sa_search(*q, make_plan([b]), seed=1234, tags=[0, 1], **kw)
     ref = search_plain(*q, b.types, b.tab, b.dmat, b.n2, keys=keys, **kw)
     assert sa_search.launches == before
     for x, y in zip(got, ref):
@@ -172,10 +174,9 @@ def test_wrapper_runs_plain_on_cpu_without_launching():
 
 def test_wrapper_refuses_other_devices():
     q = tuple(t.to("meta") for t in _small_call("cpu")[0])
-    z = torch.zeros((1, 8), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="no SA kernel"):
-        sa_search(*q, z, z, z, z, keys=z, c_par=8, r_seq=1, lorder=True,
-                  lsoln=False)
+        sa_search(*q, make_plan([], "meta"), seed=1234, tags=[0, 1],
+                  c_par=8, r_seq=1, lorder=True, lsoln=False)
 
 
 def test_plain_needs_exactly_one_stream():

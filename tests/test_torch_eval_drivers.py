@@ -33,6 +33,7 @@ from cuda_satabsearch_tpu.eval import timestab as jtimestab  # noqa: E402
 from cuda_satabsearch_tpu_torch.eval import acceptance as tacc  # noqa: E402
 from cuda_satabsearch_tpu_torch.eval import (  # noqa: E402
     acceptance_eval, gumbel_fit_artifact, make_eval_artifact)
+from cuda_satabsearch_tpu_torch.eval import timestab as ttimestab  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
@@ -239,9 +240,29 @@ def test_make_eval_artifact_runs_record(runs):
     assert row["launches"] == 0  # the plain engine, no kernel
     assert 0 < row["seconds"] < row["wall"]
     man = (art / "timestab_manifest.tsv").read_text().splitlines()
-    assert man[1] == f"cpu-torch\t{row['results']}\t{row['seconds']:.2f}"
+    assert man[1] == f"cpu-torch\t{row['results']}\t{row['seconds']:.6f}"
     err = runs["make_eval_artifact"][1]
     assert "# searching on cpu, backend=torch" in err
+
+
+def test_make_eval_artifact_manifest_keeps_a_fast_row(runs, tmp_path,
+                                                    capsys):
+    """A row whose search takes 4 ms (the kernel's on the card) keeps its
+    time in the manifest, so timestab's speed-up is finite: rounded to
+    0.01 s it was 0 and timestab divided by zero."""
+    art = _check_rc(runs, "make_eval_artifact")
+    results = str(art / "multiquery_cpu-torch.out")
+    man = tmp_path / "manifest.tsv"
+    make_eval_artifact.write_manifest(str(man), [
+        dict(label="h100-cuda", results=results, seconds=0.004),
+        dict(label="h100-torch", results=results, seconds=3.895)])
+    assert man.read_text().splitlines()[1:] == [
+        f"h100-torch\t{results}\t3.895000", f"h100-cuda\t{results}\t0.004000"]
+    capsys.readouterr()
+    assert ttimestab.main([str(man), "--gold",
+                           str(art / "gold_oracle_top5.txt")]) == 0
+    rows = [ln for ln in capsys.readouterr().out.splitlines() if "h100" in ln]
+    assert rows[1].split("&")[3].split()[0] == "973.75"
 
 
 # ----------------------------------------------------- gumbel_fit_artifact

@@ -96,12 +96,14 @@ def test_mesh_padding_counts():
         shards = upload_db(db, make_mesh(["cpu"] * ndev))
         assert len(shards) == ndev
         per = b.size // ndev
-        assert [len(s[0].index) for s in shards] == [per] * ndev
+        assert [len(s.buckets[0].index) for s in shards] == [per] * ndev
         np.testing.assert_array_equal(
-            np.concatenate([s[0].index for s in shards]), b.index)
+            np.concatenate([s.buckets[0].index for s in shards]), b.index)
         for i, s in enumerate(shards):
             np.testing.assert_array_equal(
-                s[0].n2.numpy(), b.orders[i * per:(i + 1) * per])
+                s.buckets[0].n2.numpy(), b.orders[i * per:(i + 1) * per])
+            np.testing.assert_array_equal(s.buckets[0].index_dev.numpy(),
+                                          b.index[i * per:(i + 1) * per])
     assert shard_rows(16, 8, 3) == slice(6, 8)
     with pytest.raises(ValueError, match="pad_to=3"):
         shard_rows(10, 3, 0)

@@ -73,34 +73,59 @@ def test_warm_backend_is_a_no_op_on_the_cpu_in_both_packages(monkeypatch):
 
 def test_warm_backend_brings_up_three_parts(monkeypatch, capsys):
     """On a card, warm_backend launches the start-up kernel, prepares the
-    SA kernel and makes one entry key in the kernel's format, in order, and
-    reports the three times on one stderr line (stand-ins here for the
-    parts that need a card)."""
+    SA kernel, then brings up what a search touches around the kernel:
+    the query tags' upload, the side stream with its fork and join
+    events, and a drain, in order, and reports the three times on one
+    stderr line (stand-ins here for the parts that need a card)."""
     calls = []
     dev = torch.device("meta")
+
+    class Stand:
+        def __init__(self, name):
+            self.name = name
+            self.device_index = 0
+
+        def record(self, stream):
+            calls.append(("record", self.name, stream.name))
+
+        def wait_event(self, event):
+            calls.append(("wait", self.name, event.name))
+
+    class Tags:
+        def cpu(self):
+            calls.append(("drain",))
 
     def fake_add_one(x):
         calls.append(("add_one", x.device, tuple(x.shape)))
         return torch.ones(SHAPE)
 
-    def fake_keys(seed, tags, index, device=None):
-        calls.append(("entry_keys", device, list(tags), list(index)))
-        return torch.zeros((1, 1, 2), dtype=torch.int64)
+    def fake_tags(tags, device):
+        calls.append(("upload_tags", list(tags), device))
+        return Tags()
+
+    def fake_streams(index):
+        calls.append(("launch_streams", index))
+        return Stand("side"), Stand("fork"), Stand("join")
 
     monkeypatch.setattr(twarmup, "add_one", fake_add_one)
     monkeypatch.setattr(twarmup, "prepare",
                         lambda d: calls.append(("prepare", d)))
-    monkeypatch.setattr(twarmup.rng, "entry_keys", fake_keys)
-    monkeypatch.setattr(twarmup, "key_bits",
-                        lambda k: calls.append(("key_bits", k.dtype)) or k)
+    monkeypatch.setattr(twarmup, "upload_tags", fake_tags)
+    monkeypatch.setattr(twarmup, "launch_streams", fake_streams)
+    monkeypatch.setattr(twarmup.torch.cuda, "current_stream",
+                        lambda d: Stand("current"))
     assert warm_backend(dev) >= 0.0
     assert calls == [("add_one", dev, SHAPE), ("prepare", dev),
-                     ("entry_keys", dev, [0], [0]),
-                     ("key_bits", torch.int64)]
+                     ("upload_tags", [0], dev), ("launch_streams", 0),
+                     ("record", "fork", "current"),
+                     ("wait", "side", "fork"),
+                     ("record", "join", "side"),
+                     ("wait", "current", "join"), ("drain",)]
     (line,) = capsys.readouterr().err.splitlines()
     assert line.startswith("# start-up on meta: CUDA context and kernel "
                            "library ")
-    assert "SA module prepare" in line and "torch kernels" in line
+    assert "SA module prepare" in line and "launch path" in line
+    assert not hasattr(twarmup, "rng")  # no keys are made on the host
 
 
 def test_session_warms_after_the_db_load(monkeypatch):
