@@ -70,7 +70,19 @@ DB.  Phases:
    numbers of ops/balance.py's RATE_M_IT_S) and balance_report's
    per-shard prediction against large14291's shard on [cuda:0, cuda:0];
    (f) ``graft_entry.entry()``, ``dryrun_multichip`` on every visible
-   card and on 2 shards, and ``latency_budget``'s four numbers.
+   card and on 2 shards, and ``latency_budget``'s four numbers;
+12. the benchmark runner and the stream: (a) ``python -m
+   cuda_satabsearch_tpu_torch.bench`` at its defaults (the three shapes
+   of the root bench.py) in a child process: one JSON line with the
+   root bench's keys, the reference's top 3 in its 586db per-query
+   search, both kernels launched; (b) ``bench --paritycheck --out``:
+   PASS, the root PARITY.json untouched; (c) 65,536 queries of one
+   round8 group in one ``search_many`` (more than one launch's grid
+   takes): at most 2 x ceil(65,536 / K_TILE) launches, sampled queries
+   == single searches; (d) the CLI on multiquery.input in this process:
+   the JAX package's committed output, 6 SA launches, one drain after
+   all of them; (e) the query tile's A/B on the 586db stream of 384
+   queries (tiles of 64, 128, 256 and one of 384, interleaved).
 
 Prints one line per phase, then a JSON line with the kernels' numbers
 (launches on the main path, error against the plain version, times,
@@ -79,6 +91,7 @@ the last line.  Exits non-zero without that line when there is no CUDA
 device or any phase fails.
 """
 
+import ast
 import concurrent.futures
 import contextlib
 import functools
@@ -115,11 +128,10 @@ def say(*a):
 
 
 def card_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return res.stdout.strip().splitlines()[0] if res.returncode == 0 else (
-        f"nvidia-smi failed: {res.stderr.strip()}")
+    """The card's name and power limit, as nvidia-smi gives them."""
+    from cuda_satabsearch_tpu_torch.bench import card_line
+
+    return card_line()
 
 
 def random_entry(rng, n, name):
@@ -557,7 +569,7 @@ def time_schedules(name, sess, query, card):
     """Kernel time (CUDA events), search wall and device idle share of
     both schedules, in turns (per bucket, full, full, per bucket)."""
     from cuda_satabsearch_tpu_torch.ops.kernel_search import (
-        pack_queries, search_group)
+        drain, launch_group, pack_queries)
     from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
 
     dev = sess.device
@@ -574,9 +586,9 @@ def time_schedules(name, sess, query, card):
                 sa_search(*q, plan, **kw)
 
         def search():
-            search_group([query], plans, sess.nentries, lorder=True,
-                         lsoln=False, seed=1234, query_tags=[0], c_par=128,
-                         r_seq=1, backend="cuda")
+            drain([launch_group([query], plans, lorder=True, lsoln=False,
+                                seed=1234, query_tags=[0], c_par=128,
+                                r_seq=1, backend="cuda")], sess.nentries)
 
         ms = cuda_ms(kernels, 20)
         search()
@@ -1299,6 +1311,196 @@ def phase11f(dev, out, card):
         f"{b['unattributed_ms']:.4f} ms; card {card}")
 
 
+# the root bench.py's JSON keys at its defaults
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "per_query_m_it_s",
+              "per_query_vs_baseline", "large14291_m_it_s",
+              "large14291_vs_baseline", "bigquery_r4096_m_it_s",
+              "bigquery_r4096_vs_baseline"}
+BENCH_LAUNCHES = re.compile(r"kernel launches in this run: SA kernel (\d+), "
+                            r"start-up kernel (\d+)")
+
+
+def phase12a(dev, out, card):
+    """``python -m cuda_satabsearch_tpu_torch.bench`` at its defaults (all
+    three shapes) in a child process: one JSON line with the root
+    bench's keys, the reference's top 3 on the 586db per-query search,
+    both kernels launched in the run."""
+    stdout, err, wall = run_module("cuda_satabsearch_tpu_torch.bench", [],
+                                   timeout=900)
+    lines = stdout.strip().splitlines()
+    res = json.loads(lines[-1])
+    top = re.search(r"^# \[586db\] top hits: (\[.*\])$", err, re.M)
+    top = ast.literal_eval(top.group(1)) if top else []
+    launches = BENCH_LAUNCHES.search(err)
+    sa, warm = (int(g) for g in launches.groups()) if launches else (0, 0)
+    out["bench_launches"] = (sa, warm)
+    for ln in err.splitlines():
+        if re.match(r"# \[\S+\] (per-query|sustained|top hits)", ln) or (
+                ln.startswith(("# card", "# db", "# large db", "# big q"))):
+            say(f"phase12a {ln}")
+    say(f"phase12a bench JSON values: {json.dumps(res)}; child process "
+        f"{wall:.1f} s; card {card}")
+    if len(lines) != 1 or set(res) != BENCH_KEYS:
+        raise AssertionError(f"bench stdout {lines}: keys {sorted(res)}")
+    if {n for n, _ in top} != TOP3:
+        raise AssertionError(f"586db top 3 {top} != {sorted(TOP3)}")
+    if not sa or not warm:
+        raise AssertionError(f"bench launches: SA {sa}, start-up {warm}")
+    if not all(np.isfinite(v) and v > 0 for k, v in res.items()
+               if k not in ("metric", "unit")):
+        raise AssertionError(f"bench values {res}")
+
+
+def phase12b(dev, out, card):
+    """``bench --paritycheck --out``: kernel == plain engine bitwise on
+    n1 8/19/101 x LORDER, both streams, and a tiled batch; PASS in its
+    artifact, the root PARITY.json untouched."""
+    jax_parity = os.path.join(ROOT, "PARITY.json")
+    with open(jax_parity, "rb") as fp:
+        before = fp.read()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "parity.json")
+        stdout, err, wall = run_module("cuda_satabsearch_tpu_torch.bench",
+                                       ["--paritycheck", "--out", path])
+        with open(path) as fp:
+            art = json.load(fp)
+    last = json.loads(stdout.strip().splitlines()[-1])
+    oks = [ln for ln in err.splitlines() if ln.startswith("PARITY OK")]
+    for ln in oks[-1:]:
+        say(f"phase12b {ln}")
+    say(f"phase12b bench --paritycheck: {art['result']} ({len(oks)} of "
+        f"{art['checks']} checks OK; {art['gate']}); {art['seconds']} s in "
+        f"the gate, child process {wall:.1f} s; last line {json.dumps(last)}"
+        f"; card {art['card']}")
+    with open(jax_parity, "rb") as fp:
+        if fp.read() != before:
+            raise AssertionError("the root PARITY.json was changed")
+    if art["result"] != "PASS" or art["failed"] or last != {
+            "metric": "hw_bitwise_parity", "value": 1, "unit": "pass",
+            "vs_baseline": 1.0}:
+        raise AssertionError(f"paritycheck: {art}")
+
+
+def phase12c(dev, out, card):
+    """65,536 copies of an 8-SSE query in one ``search_many`` against a
+    one-entry DB, LSOLN off (over the 65,535 queries one launch's grid
+    takes): queries 0, 1 and 65,535 == single searches at their tags."""
+    from cuda_satabsearch_tpu_torch.io.pack import pack_query
+    from cuda_satabsearch_tpu_torch.ops import kernel_search
+    from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
+    from cuda_satabsearch_tpu_torch.session import (SearchSession,
+                                                    SessionConfig)
+
+    # r = 8 against a 30-SSE entry: the score varies with the query's tag
+    # (at r = 128 every tag reaches the same maximum)
+    r = np.random.default_rng(65536)
+    sess = SearchSession("<one entry>", SessionConfig(
+        maxstart=8, device=str(dev)), entries=[random_entry(r, 30, "one")])
+    query = pack_query(random_entry(r, 8, "q8"))
+    K = 65536
+    sa_search.launches = 0
+    t0 = time.perf_counter()
+    res = sess.search_many([query] * K, lsoln=False)
+    wall = time.perf_counter() - t0
+    launches = sa_search.launches
+    out.setdefault("launches_by_path", {})["phase12c 65536 queries"] = launches
+    bound = 2 * -(-K // kernel_search.K_TILE)
+    sample = (0, 1, 63, 64, K - 1)  # first, tile edges, last
+    diffs = [int(np.abs(sess.search(query, lsoln=False, query_tag=k).scores
+                        - res[k].scores).max()) for k in sample]
+    scores = np.array([x.scores[0] for x in res])
+    say(f"phase12c {K} queries in one search_many vs a 1-entry DB (r=8, "
+        f"LSOLN off): {launches} SA launches (K_TILE "
+        f"{kernel_search.K_TILE}, at most {bound}), {wall:.3f} s wall; "
+        f"queries {sample} == single searches: max |diff| {diffs} "
+        f"(tolerance 0); {len(np.unique(scores))} distinct scores "
+        f"{scores.min()}-{scores.max()}; card {card}")
+    if not 1 <= launches <= bound:
+        raise AssertionError(f"{launches} SA launches for {K} queries")
+    if any(diffs) or len(res) != K or len(np.unique(scores)) < 2:
+        raise AssertionError("batched and single searches differ")
+
+
+def phase12d(dev, out, card):
+    """The CLI on multiquery.input in this process: output == the JAX
+    package's committed XLA-engine output (header aside), 6 SA launches
+    and one drain after all of them."""
+    from cuda_satabsearch_tpu_torch import cli, session
+    from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
+
+    with open(os.path.join(FIXTURES, "multiquery.input")) as fp:
+        text = fp.read()
+    drains, drain_db_many = [], session.drain_db_many
+
+    def recorded(*a, **k):
+        drains.append(sa_search.launches)
+        return drain_db_many(*a, **k)
+
+    stdout, stderr = io.StringIO(), io.StringIO()
+    old_stdin, old_cwd = sys.stdin, os.getcwd()
+    sa_search.launches = 0
+    try:
+        session.drain_db_many = recorded
+        sys.stdin = io.StringIO(text)
+        os.chdir(FIXTURES)  # the input names its DB relative to it
+        with contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(stderr):
+            rc = cli.main(["-r", "128"])
+    finally:
+        session.drain_db_many = drain_db_many
+        sys.stdin = old_stdin
+        os.chdir(old_cwd)
+    launches = sa_search.launches
+    out.setdefault("launches_by_path", {})["phase12d CLI multiquery"] = (
+        launches)
+    with open(JAX_XLA_OUT) as fp:
+        same = HEADER.sub("", stdout.getvalue()) == HEADER.sub("", fp.read())
+    search_ms = re.search(r"search time ([0-9.]+) ms", stderr.getvalue())
+    say(f"phase12d CLI -r 128 on multiquery.input in this process: exit {rc}"
+        f", output == the JAX package's committed XLA-engine output (header "
+        f"aside): {same}; {launches} SA launches; drains {len(drains)}, "
+        f"after {drains} launches; search "
+        f"{search_ms.group(1) if search_ms else '?'} ms; card {card}")
+    if rc != 0 or not same:
+        raise AssertionError(f"CLI exit {rc}, output same: {same}")
+    if launches != 6 or drains != [6]:
+        raise AssertionError(f"{launches} launches, drains after {drains}")
+
+
+def phase12e(dev, out, card):
+    """K_TILE A/B in one process: the bench's 586db sustained stream (384
+    copies of d1ubia_, r = 128) in tiles of 64, 128, 256 and in one
+    tile of 384, interleaved, best of 5 search_many walls each turn."""
+    from cuda_satabsearch_tpu_torch.ops import kernel_search
+    from cuda_satabsearch_tpu_torch.session import (SearchSession,
+                                                    SessionConfig)
+
+    sess = SearchSession(DB586, SessionConfig(maxstart=128, device=str(dev)))
+    queries = read_query("d1ubia_.input") * 384
+    it = sess.nentries * 128 * 100 * len(queries)
+    walls, k_tile = {}, kernel_search.K_TILE
+    try:
+        for tile in (64, 128, 256, 384, 384, 256, 128, 64):
+            kernel_search.K_TILE = tile
+            sess.search_many(queries)
+            best = float("inf")
+            for _ in range(5):
+                t0 = time.perf_counter()
+                sess.search_many(queries)  # ends in its drain
+                best = min(best, time.perf_counter() - t0)
+            walls.setdefault(tile, []).append(best * 1e3)
+    finally:
+        kernel_search.K_TILE = k_tile
+    cells = "; ".join(
+        f"{t}: {' / '.join(f'{w:.3f}' for w in ws)} ms "
+        f"({it / min(ws) / 1e3:.1f} M it/s)" for t, ws in walls.items())
+    slower = min(walls[64]) / min(walls[384]) - 1
+    say(f"phase12e K_TILE A/B, 586db sustained stream of 384 queries, r=128 "
+        f"(search_many wall, best of 5 per turn, turns interleaved): {cells}"
+        f"; tiles of 64 against one tile of 384: {slower:+.4f} (the module's "
+        f"K_TILE: {k_tile}); card {card}")
+
+
 def report_occupancy(dev):
     """Each launch class's CTAs per SM at its widest bucket (d2 32 and
     112), n1r 8, c_par 128, LSOLN on, and the shared memory per CTA there
@@ -1371,7 +1573,12 @@ def main() -> int:
               ("phase10", lambda d, o: phase10(d, o, card)),
               ("phase11", lambda d, o: phase11(d, o, card)),
               ("phase11e", lambda d, o: phase11e(d, o, card)),
-              ("phase11f", lambda d, o: phase11f(d, o, card)))
+              ("phase11f", lambda d, o: phase11f(d, o, card)),
+              ("phase12a", lambda d, o: phase12a(d, o, card)),
+              ("phase12b", lambda d, o: phase12b(d, o, card)),
+              ("phase12c", lambda d, o: phase12c(d, o, card)),
+              ("phase12d", lambda d, o: phase12d(d, o, card)),
+              ("phase12e", lambda d, o: phase12e(d, o, card)))
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -1387,11 +1594,15 @@ def main() -> int:
     share = lambda b, t: None if b is None or not t else b / t
     # start-up kernel: f32[8, 128] read once and written once
     warm_bound = 2 * 4 * 8 * 128 / HBM_BYTES_S * 1e3
+    bench_sa, bench_warm = out.get("bench_launches", (None, None))
     say(json.dumps({"kernels": [{
         "name": "sa_search", "route": "cuda",
         "source": "cuda_satabsearch_tpu_torch/csrc/sa_search.cu",
         "replaces": "cuda_satabsearch_tpu/ops/pallas_sa2.py:535",
         "launches": out.get("launches"),
+        "launches_by_path": {"phase3 CLI d1ubia_": out.get("launches"),
+                             "phase12a bench": bench_sa,
+                             **out.get("launches_by_path", {})},
         "launches_per_query": out.get("launches"),
         "max_abs_err": max(sa_errs) if sa_errs else None,
         "ms": out.get("ms"), "plain_ms": out.get("plain_ms"),
@@ -1402,6 +1613,8 @@ def main() -> int:
         "source": "cuda_satabsearch_tpu_torch/csrc/warmup.cu",
         "replaces": "cuda_satabsearch_tpu/core/warmup.py:51",
         "launches": out.get("warm_launches"),
+        "launches_by_path": {"phase3 CLI d1ubia_": out.get("warm_launches"),
+                             "phase12a bench": bench_warm},
         "launches_per_query": 0,
         "max_abs_err": errs.get("phase0"),
         "ms": out.get("warm_ms"), "plain_ms": out.get("warm_plain_ms"),

@@ -7,11 +7,17 @@ Counterpart of cuda_satabsearch_tpu/ops/pallas_search.py
 plan, entry groups, query scatters and packed int8 drains: each bucket
 is uploaded once as plain tensors (whole, or as shards over a mesh of
 devices, parallel/mesh.py), with its entries' file-order indices, and
-each shard gets a launch plan (``make_plan``).  K queries of one round8
-group run against a shard in at most two kernel launches, one per
-launch class (the narrow buckets, d2 <= 32, and the wide ones), each
-writing its columns of one int32[K, E_shard] output; scores and maps
-come back as int32.
+each shard gets a launch plan (``make_plan``).  The K queries of one
+round8 group run against a shard in tiles of at most ``K_TILE`` queries
+(as the JAX package tiles K, ops/pallas_search.py:497-520, without its
+power-of-two tail tiles, which exist for the TPU's compiles), each tile
+in at most two kernel launches, one per launch class (the narrow
+buckets, d2 <= 32, and the wide ones), each writing its columns of one
+int32[K, E_shard] output; scores and maps come back as int32.  As the
+JAX package's dispatch / assemble pair is split, ``launch_group``
+launches a group and ``drain`` brings any number of launched groups
+back, so that a stream of groups is launched whole before its one
+drain.
 """
 
 from __future__ import annotations
@@ -25,9 +31,12 @@ from ..core.constants import DEFAULTS, SAParams
 from ..parallel.distributed import to_host
 from .common import pack_tab, prepare_query, round8
 from .engine import search_plan_plain
-from .sa_kernel import MAX_BUCKETS, descriptor, sa_search
+from .sa_kernel import MAX_BUCKETS, descriptor, sa_search, upload_tags
 
 NARROW_MAX = 32  # widest bucket of the narrow launch class
+# queries of one launch: the JAX package's K_TILE (ops/pallas_search.py
+# :497); a launch's grid holds at most 65,535 queries
+K_TILE = 64
 
 
 @dataclass
@@ -146,47 +155,85 @@ def pack_queries(queries, n1r: int, device):
         for p, o in zip(parts, offsets))
 
 
-def search_group(queries, shards: list[Plan], nentries: int, *, lorder: bool,
-                 lsoln: bool, seed: int, query_tags, c_par: int, r_seq: int,
-                 backend: str, gather: bool = False,
-                 params: SAParams = DEFAULTS):
-    """Search K queries of one round8 group against every shard's plan
-    (ops/search.upload_db).
+def tiles(K: int) -> list[slice]:
+    """The query tiles of a K-query group: slices of at most ``K_TILE``
+    queries, in order (the last one may be shorter)."""
+    return [slice(k, min(k + K_TILE, K)) for k in range(0, K, K_TILE)]
+
+
+@dataclass
+class Launched:
+    """A round8 group launched on every shard and not drained yet."""
+
+    queries: list
+    n1r: int
+    lsoln: bool
+    # per shard: (device, file-order index int32[E], scores int32[K, E],
+    # maps int32[K, E, n1r] or None), the outputs still on the device
+    outputs: list
+
+
+def launch_group(queries, shards: list[Plan], *, lorder: bool, lsoln: bool,
+                 seed: int, query_tags, c_par: int, r_seq: int, backend: str,
+                 params: SAParams = DEFAULTS) -> Launched:
+    """Launch K queries of one round8 group against every shard's plan
+    (ops/search.upload_db), without waiting for any result.
 
     ``backend`` "cuda" runs the kernel's wrapper (ops/sa_kernel.py, at
-    most two launches per shard), "torch" the plain engine
-    (ops/engine.py), on each shard's device.  Every shard is launched,
-    on that device's current stream, before any shard is drained, so the
-    devices run together.  ``gather``: the shards of the other ranks of
-    a multi-process run are all-gathered (parallel/distributed.to_host).
-    Returns [(scores int32[nentries], maps int32[nentries, n1] or None)]
-    in query order, entries in database file order."""
+    most two launches per shard and query tile), "torch" the plain
+    engine (ops/engine.py), on each shard's device and current stream.
+    The queries and their tags are uploaded once per shard; each tile
+    of ``tiles(K)`` is one call, and a group of more than one tile has
+    its tiles' outputs joined on the device.  Each query keeps its own
+    tag, so the results do not depend on the tiling."""
     n1r = round8(max(q.order for q in queries))
     if any(round8(q.order) != n1r for q in queries):
         raise ValueError("queries of one call must share round8(order)")
-    K = len(queries)
     fn = {"cuda": sa_search, "torch": search_plan_plain}[backend]
-    launched = []
+    outputs = []
     for plan in shards:
         if not plan.nentries:  # an empty DB
             continue
-        s, m = fn(*pack_queries(queries, n1r, plan.device), plan, seed=seed,
-                  tags=query_tags, c_par=c_par, r_seq=r_seq, lorder=lorder,
-                  lsoln=lsoln, params=params)
-        launched.append((plan.device, plan.index, s, m))
-    scores = np.zeros((K, nentries), np.int32)
-    maps = np.full((K, nentries, n1r), -1, np.int32) if lsoln else None
-    for dev, index, s, m in launched:  # one drain per output per shard
-        if gather:
-            index = to_host(torch.from_numpy(index).to(dev))
-            s = to_host(s, dim=1)
-            m = to_host(m, dim=1) if lsoln else None
-        else:
-            s = s.cpu().numpy()
-            m = m.cpu().numpy() if lsoln else None
-        valid = index >= 0  # drop padding entries
-        scores[:, index[valid]] = s[:, valid]
-        if lsoln:
-            maps[:, index[valid]] = m[:, valid]
-    return [(scores[k], None if maps is None else maps[k, :, :q.order])
-            for k, q in enumerate(queries)]
+        q = pack_queries(queries, n1r, plan.device)
+        tags = upload_tags(query_tags, plan.device)
+        parts = [fn(*(x[t] for x in q), plan, seed=seed, tags=tags[t],
+                    c_par=c_par, r_seq=r_seq, lorder=lorder, lsoln=lsoln,
+                    params=params)
+                 for t in tiles(len(queries))]
+        s, m = parts[0] if len(parts) == 1 else (
+            torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]) if lsoln else None)
+        outputs.append((plan.device, plan.index, s, m))
+    return Launched(queries=list(queries), n1r=n1r, lsoln=lsoln,
+                    outputs=outputs)
+
+
+def drain(launched: list[Launched], nentries: int, gather: bool = False):
+    """Bring the outputs of launched groups to the host, in launch order:
+    the stream's only wait for the device.  ``gather``: the shards of
+    the other ranks of a multi-process run are all-gathered
+    (parallel/distributed.to_host; every rank drains the same groups in
+    the same order, so the collectives match).  Returns, per group,
+    [(scores int32[nentries], maps int32[nentries, n1] or None)] in
+    query order, entries in database file order."""
+    out = []
+    for group in launched:
+        K, lsoln = len(group.queries), group.lsoln
+        scores = np.zeros((K, nentries), np.int32)
+        maps = (np.full((K, nentries, group.n1r), -1, np.int32) if lsoln
+                else None)
+        for dev, index, s, m in group.outputs:  # one copy per output
+            if gather:
+                index = to_host(torch.from_numpy(index).to(dev))
+                s = to_host(s, dim=1)
+                m = to_host(m, dim=1) if lsoln else None
+            else:
+                s = s.cpu().numpy()
+                m = m.cpu().numpy() if lsoln else None
+            valid = index >= 0  # drop padding entries
+            scores[:, index[valid]] = s[:, valid]
+            if lsoln:
+                maps[:, index[valid]] = m[:, valid]
+        out.append([(scores[k], None if maps is None else maps[k, :, :q.order])
+                    for k, q in enumerate(group.queries)])
+    return out

@@ -29,6 +29,18 @@ from .common import round8
 
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+SEED_MIN, SEED_END = -2 ** 31, 2 ** 31  # the int32 seeds PRNGKey takes
+
+
+def check_seed(seed: int) -> int:
+    """``seed`` if it lies in [-2**31, 2**31), else ValueError: the JAX
+    package keys its stream with ``PRNGKey(seed)`` on an int32 and
+    raises OverflowError beyond it, so a wider seed would run a stream
+    it never makes (or, masked to 32 bits, another seed's)."""
+    if not SEED_MIN <= seed < SEED_END:
+        raise ValueError(f"seed {seed} is outside [-2**31, 2**31) (the "
+                         f"JAX package's int32 seeds)")
+    return int(seed)
 
 
 def threefry2x32(k0, k1, x0, x1):
@@ -60,7 +72,9 @@ def entry_keys(seed: int, query_tags, indices,
                device=None) -> torch.Tensor:
     """Per-(query, entry) keys int64[K, E, 2] (uint32 values):
     fold_in(fold_in(PRNGKey(seed), tag), index), as the JAX package
-    keys the stream of entry ``index`` (its file-order position)."""
+    keys the stream of entry ``index`` (its file-order position).
+    ``seed`` must lie in [-2**31, 2**31) (``check_seed``)."""
+    seed = check_seed(seed)
     tags = torch.as_tensor(np.asarray(query_tags, np.int64).reshape(-1),
                            device=device)
     idx = torch.as_tensor(np.asarray(indices, np.int64).reshape(-1),

@@ -41,7 +41,7 @@ import torch
 from ..core.constants import DEFAULTS, SAParams
 from .common import C_MAX, slots_per_restart
 from .engine import search_plan_plain
-from .rng import M32
+from .rng import M32, check_seed
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "sa_search.cu", _PKG / "csrc" / "warmup.cu")
@@ -49,6 +49,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_BUCKETS = 8  # buckets of one launch (csrc/sa_search.cu MAX_BUCKETS)
+MAX_K = 65535  # queries of one launch: the grid's y extent
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -238,7 +239,9 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
     read from ``uniforms`` f32[K, E, r_seq, P, c_par].  On the CPU the
     plain version runs; on a CUDA device one kernel launch per launch
     class (at most two) is made.  Returns (scores int32[K, E], maps
-    int32[K, E, n1r] or None), E = plan.nentries in the plan's order."""
+    int32[K, E, n1r] or None), E = plan.nentries in the plan's order.
+    ``seed`` must lie in [-2**31, 2**31) (ops/rng.check_seed)."""
+    seed = check_seed(seed)
     dev = plan.device
     if dev.type == "cpu":
         return search_plan_plain(qtypes, qtab, qdmat, n1s, plan, seed=seed,
@@ -252,6 +255,9 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
     if not 1 <= c_par <= C_MAX:
         raise ValueError(f"c_par must be in [1, {C_MAX}], got {c_par}")
     K, n1r = qtypes.shape
+    if K > MAX_K:
+        raise ValueError(f"{K} queries in one launch; the grid takes "
+                         f"{MAX_K} (ops/kernel_search tiles a group)")
     E = plan.nentries
     P = slots_per_restart(n1r, params.maxiter)
     check_tensor("qtypes", qtypes, torch.int8, (K, n1r), dev)

@@ -19,7 +19,8 @@ import torch
 from ..core.constants import DEFAULT_MAXSTART, DEFAULTS, SAParams
 from ..parallel.mesh import mesh_shards, shard_rows
 from .common import C_MAX
-from .kernel_search import Plan, make_plan, prepare_bucket, search_group
+from .kernel_search import (Launched, Plan, drain, launch_group, make_plan,
+                            prepare_bucket)
 
 DEFAULT_SEED = 1234  # the reference's fixed seed (cudaSaTabsearch.cu:263,:871)
 
@@ -89,24 +90,41 @@ def upload_db(db, devices) -> list[Plan]:
             for i, dev in enumerate(devices)]
 
 
-def search_db_many(queries, db, shards: list[Plan], *,
+def launch_db_many(queries, shards: list[Plan], *,
                    maxstart: int = DEFAULT_MAXSTART, lorder: bool = True,
                    lsoln: bool = True, seed: int = DEFAULT_SEED,
                    query_tags, c_max: int = C_MAX, backend: str = "cuda",
-                   gather: bool = False,
-                   params: SAParams = DEFAULTS) -> list[SearchResult]:
-    """Search queries that share round8(order) in at most two launches
-    per shard (``shards`` from upload_db; ``gather``: all-gather the
-    shards of a multi-process run)."""
+                   params: SAParams = DEFAULTS) -> Launched:
+    """Launch queries that share round8(order) on every shard
+    (``shards`` from upload_db): at most two launches per shard and
+    query tile (ops/kernel_search.launch_group); ``drain_db_many``
+    brings the results back."""
     c_par, r_seq = choose_chains(maxstart, min(c_max, C_MAX))
-    outs = search_group(queries, shards, db.nentries, lorder=lorder,
-                        lsoln=lsoln, seed=seed, query_tags=query_tags,
-                        c_par=c_par, r_seq=r_seq, backend=backend,
-                        gather=gather, params=params)
-    return [SearchResult(scores=s, ssemaps=m, names=db.names,
-                         orders=db.orders, query_order=q.order,
-                         maxstart=maxstart)
-            for q, (s, m) in zip(queries, outs)]
+    return launch_group(queries, shards, lorder=lorder, lsoln=lsoln,
+                        seed=seed, query_tags=query_tags, c_par=c_par,
+                        r_seq=r_seq, backend=backend, params=params)
+
+
+def drain_db_many(launched: list[Launched], db, *, maxstart: int,
+                  gather: bool = False) -> list[list[SearchResult]]:
+    """The results of launched groups, per group in query order, in one
+    drain (``gather``: all-gather the shards of a multi-process run)."""
+    return [[SearchResult(scores=s, ssemaps=m, names=db.names,
+                          orders=db.orders, query_order=q.order,
+                          maxstart=maxstart)
+             for q, (s, m) in zip(group.queries, outs)]
+            for group, outs in zip(launched,
+                                   drain(launched, db.nentries, gather))]
+
+
+def search_db_many(queries, db, shards: list[Plan], *,
+                   maxstart: int = DEFAULT_MAXSTART, gather: bool = False,
+                   **kw) -> list[SearchResult]:
+    """Search queries that share round8(order): ``launch_db_many``'s
+    keywords, then their drain."""
+    launched = launch_db_many(queries, shards, maxstart=maxstart, **kw)
+    return drain_db_many([launched], db, maxstart=maxstart,
+                         gather=gather)[0]
 
 
 def search_db(query, db, shards: list[Plan], *,

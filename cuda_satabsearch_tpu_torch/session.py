@@ -37,8 +37,8 @@ from .io.parser import TableauEntry, read_database
 from .ops.common import round8
 from .parallel import distributed
 from .parallel.mesh import make_mesh, mesh_shards
-from .ops.search import (SearchResult, resolve_backend, search_db_many,
-                         upload_db)
+from .ops.search import (SearchResult, drain_db_many, launch_db_many,
+                         resolve_backend, upload_db)
 from .stats.gumbel import score_stats
 
 
@@ -103,29 +103,35 @@ class SearchSession:
             return None
         return pack_query(self.db.entry(*loc))
 
-    def _kw(self, lorder: bool, lsoln: bool) -> dict:
+    def _launch(self, queries, tags, lorder: bool, lsoln: bool):
         cfg = self.config
-        return dict(maxstart=cfg.maxstart, lorder=lorder, lsoln=lsoln,
-                    seed=cfg.seed, c_max=cfg.c_max, backend=self.backend,
-                    gather=self.gather, params=cfg.params)
+        return launch_db_many(queries, self.device_db, maxstart=cfg.maxstart,
+                              lorder=lorder, lsoln=lsoln, seed=cfg.seed,
+                              query_tags=tags, c_max=cfg.c_max,
+                              backend=self.backend, params=cfg.params)
+
+    def _drain(self, launched) -> list[list[SearchResult]]:
+        return drain_db_many(launched, self.db, maxstart=self.config.maxstart,
+                             gather=self.gather)
 
     def search_many(self, queries, *, lorder: bool = True,
                     lsoln: bool = False) -> list[SearchResult]:
         """Search a stream of queries.  Each query's RNG tag is its
         position in the stream (as the JAX package's ``-c`` path
-        numbers them); queries are grouped by round8(order), and each
-        group runs in at most two launches per shard."""
+        numbers them); queries are grouped by round8(order), each group
+        in query tiles of at most two launches per shard.  Every group is
+        launched before the stream's one drain (as the JAX package
+        dispatches every group, then assembles them)."""
         tags = list(range(self._query_tag, self._query_tag + len(queries)))
         self._query_tag += len(queries)
         groups: dict[int, list[int]] = {}
         for i, q in enumerate(queries):
             groups.setdefault(round8(q.order), []).append(i)
+        launched = [self._launch([queries[i] for i in idxs],
+                                 [tags[i] for i in idxs], lorder, lsoln)
+                    for idxs in groups.values()]
         out: list = [None] * len(queries)
-        for idxs in groups.values():
-            results = search_db_many(
-                [queries[i] for i in idxs], self.db, self.device_db,
-                query_tags=[tags[i] for i in idxs],
-                **self._kw(lorder, lsoln))
+        for idxs, results in zip(groups.values(), self._drain(launched)):
             for i, res in zip(idxs, results):
                 out[i] = res
         return out
@@ -136,9 +142,8 @@ class SearchSession:
         if query_tag is None:
             query_tag = self._query_tag
         self._query_tag = query_tag + 1
-        return search_db_many([query], self.db, self.device_db,
-                              query_tags=[query_tag],
-                              **self._kw(lorder, lsoln))[0]
+        return self._drain([self._launch([query], [query_tag], lorder,
+                                         lsoln)])[0][0]
 
 
 def _load_db(dbfile: str, cfg: SessionConfig, pad_to: int) -> PackedDB:

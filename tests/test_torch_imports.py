@@ -18,13 +18,14 @@ EVAL_MODULES = tuple(f"eval.{m}" for m in (
     "roc", "acceptance", "results", "gumbelfit", "fischer", "nh3d", "cops",
     "scop", "timestab", "tables", "plots", "adapters", "extrunner",
     "acceptance_eval", "make_eval_artifact", "gumbel_fit_artifact"))
-# the structure-to-hits path and the last modules: every other module of
-# the JAX package has its counterpart too
+# the structure-to-hits path and the last modules, the benchmark runner
+# among them: every other module of the JAX package has its counterpart
+# too
 PATH_MODULES = tuple(f"build.{m}" for m in (
     "geom", "pdbfile", "secstruct", "domains", "domeval", "builder", "mfile")
 ) + ("build", "tools", "tools.superimpose", "tools.ssemap", "tools.tophits",
      "ops.golden", "ops.balance", "graft_entry", "latency_budget",
-     "synthetic")
+     "synthetic", "bench")
 
 
 def _port_modules():
