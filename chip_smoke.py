@@ -70,7 +70,8 @@ DB.  Phases:
    numbers of ops/balance.py's RATE_M_IT_S) and balance_report's
    per-shard prediction against large14291's shard on [cuda:0, cuda:0];
    (f) ``graft_entry.entry()``, ``dryrun_multichip`` on every visible
-   card and on 2 shards, and ``latency_budget``'s four numbers;
+   card and on 2 shards, and ``latency_budget``'s split of a warm query
+   by the program's spans;
 12. the benchmark runner and the stream: (a) ``python -m
    cuda_satabsearch_tpu_torch.bench`` at its defaults (the three shapes
    of the root bench.py) in a child process: one JSON line with the
@@ -1278,7 +1279,7 @@ def phase11e(dev, out, card):
 
 def phase11f(dev, out, card):
     """graft_entry.entry() and dryrun_multichip on every visible card
-    and on 2 shards; latency_budget's four numbers."""
+    and on 2 shards; latency_budget's split by the program's spans."""
     from cuda_satabsearch_tpu_torch import graft_entry, latency_budget
     from cuda_satabsearch_tpu_torch.ops.engine import search_plan_plain
     from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
@@ -1304,11 +1305,10 @@ def phase11f(dev, out, card):
             say(f"phase11f {line}")
     b = latency_budget.budget()
     out["latency"] = b
-    say(f"phase11f latency budget (586 entries, d1ubia_, r = 128): "
-        f"sa_search enqueue {b['enqueue_ms']:.4f} ms, search "
-        f"{b['search_ms']:.4f} ms, device/query (K = 64, CUDA events) "
-        f"{b['device_ms']:.4f} ms, unattributed host "
-        f"{b['unattributed_ms']:.4f} ms; card {card}")
+    say(f"phase11f latency budget (586 entries, d1ubia_, r = 128, median "
+        f"self time per span over {b['reps']} queries): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in b["self_ms"].items())
+        + f"; whole query {b['query_ms']:.4f} ms; card {card}")
 
 
 # the root bench.py's JSON keys at its defaults

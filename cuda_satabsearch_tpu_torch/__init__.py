@@ -21,7 +21,8 @@ Package layout (module names mirror the JAX package):
   session.py resident DB + query stream
   cli.py     the ``torchsatabsearch`` command-line program
   graft_entry.py     single-card check and multi-shard dry run
-  latency_budget.py  a warm search's enqueue / device / host split
+  latency_budget.py  a warm query's self time per span (trace.py)
+  trace.py           spans at the search path's layer boundaries
   synthetic.py       seeded synthetic entries and PDB structures
 """
 

@@ -1,25 +1,22 @@
-"""Warm single-query latency budget of a search on the card.
+"""Warm single-query latency budget of a search, from the program's spans.
 
-Counterpart of the JAX package's ``scripts/latency_budget.py``: splits
-the wall time of one warm ``SearchSession.search`` (586-entry DB,
-d1ubia_ 8-SSE query) into
-
-* the host's enqueue of the SA search: ``ops/sa_kernel.sa_search`` on
-  uploaded query tensors, which returns once its launches are queued,
-  before the kernels finish (host clock, best of ``--reps``);
-* the full ``search``: query upload, launches, drain, scatter to file
-  order (host clock, best of ``--reps``);
-* the device time per query: CUDA events around a K = 64 query
-  ``search_many`` (one round8 group: at most two launches), over K;
-* the remainder, host time no other line attributes (search - enqueue
-  - device).
+Counterpart of the JAX package's ``scripts/latency_budget.py``.  Runs
+``--reps`` warm queries (586-entry DB, d1ubia_ 8-SSE query): each a
+``SearchSession.search`` and the ``score_stats`` of its scores, as the
+CLI does, inside ``trace.recording()``.  Prints, per span of the search
+path that a query records (``trace.SPANS``, in that order), the median
+over the queries of its self time: its duration less its children's.  ``session.search``'s own is the glue
+between launch and drain and the building of the result;
+``kernel_search.launch_group``'s the query pack and upload and the tags
+upload; ``kernel_search.enqueue`` the launches; ``kernel_search.drain``
+the wait for the device, the copies and the scatter to file order.  The
+last line is the median of the whole query.
 
     python -m cuda_satabsearch_tpu_torch.latency_budget [--restarts 128]
         [--reps 7] [--lsoln] [-c]
 
-``-c`` runs the plain engine on the CPU, which has no device time, so
-that the code can be driven without a card; it prints "not measured"
-for the two device lines.
+``-c`` runs the plain engine on the CPU, so that the code can be driven
+without a card; its times are the CPU's.
 """
 
 from __future__ import annotations
@@ -27,91 +24,72 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-import time
 
-import torch
+import numpy as np
 
+from . import trace
 from .io.pack import pack_query
 from .io.parser import parse_search_input
-from .ops.common import round8
-from .ops.kernel_search import pack_queries
-from .ops.sa_kernel import sa_search
-from .ops.search import choose_chains
 from .session import SearchSession, SessionConfig
+from .stats.gumbel import score_stats
 
 FIXTURES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tests", "fixtures")
 DB586 = os.path.join(FIXTURES, "tableauxdistmatrixdb.small.ascii")
 QUERY = os.path.join(FIXTURES, "d1ubia_.input")
-STREAM = 64  # queries of the search_many that times the device
+
+
+def self_ns(spans) -> dict:
+    """Self time (ns) by span name over ``spans`` (whole requests), in
+    ``trace.SPANS`` order: each span's duration less its children's.
+    One thread records, so the children of a span run one after another
+    and never overlap: the sum of their durations is their union."""
+    name = {s.sid: s.name for s in spans}
+    seen = set(name.values())
+    own = {k: 0 for k in trace.SPANS if k in seen}
+    for s in spans:
+        d = s.end_ns - s.start_ns
+        own[s.name] += d
+        if s.parent in name:
+            own[name[s.parent]] -= d
+    return own
 
 
 def budget(restarts: int = 128, reps: int = 7, lsoln: bool = False,
            device=None) -> dict:
-    """The four numbers (ms) and what they were measured on:
-    {"enqueue_ms", "search_ms", "device_ms" (None on the CPU),
-    "unattributed_ms" (None on the CPU), "iters", "device"}."""
+    """{"self_ms": {span: median self time per query}, "query_ms": median
+    of the whole query (its root spans), "reps", "device"}."""
     with open(QUERY) as fp:
         query = pack_query(parse_search_input(fp).queries[0])
     sess = SearchSession(DB586, SessionConfig(maxstart=restarts,
                                               device=device))
-    dev = sess.device
-    on_card = dev.type == "cuda"
 
-    def sync():
-        if on_card:
-            torch.cuda.synchronize(dev)
+    def one(tag: int):
+        r = sess.search(query, lsoln=lsoln, query_tag=tag)
+        score_stats(r.scores, query.order, r.orders)
 
-    def best(fn) -> float:
-        b = float("inf")
+    one(0)  # warm every path involved
+    per_query = []
+    with trace.recording():
         for i in range(reps):
-            sync()
-            t0 = time.perf_counter()
-            fn(i)
-            b = min(b, time.perf_counter() - t0)
-            sync()
-        return b * 1e3
-
-    c_par, r_seq = choose_chains(restarts, sess.config.c_max)
-    (plan,) = sess.device_db
-    q = pack_queries([query], round8(query.order), dev)
-    kw = dict(seed=sess.config.seed, c_par=c_par, r_seq=r_seq, lorder=True,
-              lsoln=lsoln)
-    sess.search(query, lsoln=lsoln)  # warm every path involved
-    sa_search(*q, plan, tags=[0], **kw)
-    enqueue = best(lambda i: sa_search(*q, plan, tags=[100 + i], **kw))
-    full = best(lambda i: sess.search(query, lsoln=lsoln,
-                                      query_tag=200 + i))
-    device_ms = unattributed = None
-    if on_card:
-        queries = [query] * STREAM
-        sess.search_many(queries, lsoln=lsoln)  # warm the K-query group
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        sync()
-        start.record()
-        sess.search_many(queries, lsoln=lsoln)
-        end.record()
-        sync()
-        device_ms = start.elapsed_time(end) / STREAM
-        unattributed = full - enqueue - device_ms
-    return {"enqueue_ms": enqueue, "search_ms": full, "device_ms": device_ms,
-            "unattributed_ms": unattributed, "device": str(dev),
-            "iters": sess.nentries * restarts * sess.config.params.maxiter}
+            before = len(trace.spans())
+            one(100 + i)
+            per_query.append(trace.spans()[before:])
+    med = lambda xs: float(np.median(xs)) / 1e6
+    own = [self_ns(spans) for spans in per_query]
+    return {"self_ms": {k: med([o[k] for o in own]) for k in own[0]},
+            "query_ms": med([sum(s.end_ns - s.start_ns for s in spans
+                                 if s.parent == -1) for spans in per_query]),
+            "reps": reps, "device": str(sess.device)}
 
 
 def format_budget(b: dict, restarts: int, lsoln: bool) -> str:
-    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
-    rate = b["iters"] / b["search_ms"] / 1e3
-    return "\n".join((
-        f"warm single-query budget on {b['device']} (586-entry DB, 8-SSE "
-        f"d1ubia_, r={restarts}, lsoln={lsoln}):",
-        f"  sa_search host enqueue           {fmt(b['enqueue_ms'])}",
-        f"  full search (upload, launches, drain, scatter) "
-        f"{fmt(b['search_ms'])} ({rate:.1f} M it/s)",
-        f"  device time/query (K={STREAM} search_many, CUDA events) "
-        f"{fmt(b['device_ms'])}",
-        f"  unattributed host time           {fmt(b['unattributed_ms'])}"))
+    return "\n".join(
+        [f"warm single-query budget on {b['device']} (586-entry DB, 8-SSE "
+         f"d1ubia_, r={restarts}, lsoln={lsoln}): median self time of each "
+         f"span over {b['reps']} queries"]
+        + [f"  {k:<28} {v:.4f} ms" for k, v in b["self_ms"].items()]
+        + [f"  {'whole query':<28} {b['query_ms']:.4f} ms"])
 
 
 def main(argv=None) -> int:
@@ -123,8 +101,7 @@ def main(argv=None) -> int:
     ap.add_argument("--lsoln", action="store_true",
                     help="include SSE maps in the drain (CLI default)")
     ap.add_argument("-c", "--cpu", action="store_true",
-                    help="run the plain engine on the CPU (no device "
-                         "lines)")
+                    help="run the plain engine on the CPU")
     args = ap.parse_args(argv)
     b = budget(args.restarts, args.reps, args.lsoln,
                "cpu" if args.cpu else None)

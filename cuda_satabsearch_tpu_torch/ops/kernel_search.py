@@ -27,6 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.constants import DEFAULTS, SAParams
 from ..parallel.distributed import to_host
 from .common import pack_tab, prepare_query, round8
@@ -190,22 +191,34 @@ def launch_group(queries, shards: list[Plan], *, lorder: bool, lsoln: bool,
     if any(round8(q.order) != n1r for q in queries):
         raise ValueError("queries of one call must share round8(order)")
     fn = {"cuda": sa_search, "torch": search_plan_plain}[backend]
-    outputs = []
-    for plan in shards:
-        if not plan.nentries:  # an empty DB
-            continue
-        q = pack_queries(queries, n1r, plan.device)
-        tags = upload_tags(query_tags, plan.device)
-        parts = [fn(*(x[t] for x in q), plan, seed=seed, tags=tags[t],
-                    c_par=c_par, r_seq=r_seq, lorder=lorder, lsoln=lsoln,
-                    params=params)
-                 for t in tiles(len(queries))]
-        s, m = parts[0] if len(parts) == 1 else (
-            torch.cat([p[0] for p in parts]),
-            torch.cat([p[1] for p in parts]) if lsoln else None)
-        outputs.append((plan.device, plan.index, s, m))
-    return Launched(queries=list(queries), n1r=n1r, lsoln=lsoln,
-                    outputs=outputs)
+    sp = trace.begin("kernel_search.launch_group", query_tags[0],
+                     len(queries))
+    try:
+        outputs = []
+        for plan in shards:
+            if not plan.nentries:  # an empty DB
+                continue
+            q = pack_queries(queries, n1r, plan.device)
+            tags = upload_tags(query_tags, plan.device)
+            parts = []
+            for t in tiles(len(queries)):
+                tsp = trace.begin("kernel_search.enqueue",
+                                  query_tags[t.start], t.stop - t.start)
+                try:
+                    parts.append(fn(*(x[t] for x in q), plan, seed=seed,
+                                    tags=tags[t], c_par=c_par, r_seq=r_seq,
+                                    lorder=lorder, lsoln=lsoln,
+                                    params=params))
+                finally:
+                    trace.end(tsp)
+            s, m = parts[0] if len(parts) == 1 else (
+                torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]) if lsoln else None)
+            outputs.append((plan.device, plan.index, s, m))
+        return Launched(queries=list(queries), n1r=n1r, lsoln=lsoln,
+                        outputs=outputs)
+    finally:
+        trace.end(sp)
 
 
 def drain(launched: list[Launched], nentries: int, gather: bool = False):
@@ -215,25 +228,34 @@ def drain(launched: list[Launched], nentries: int, gather: bool = False):
     (parallel/distributed.to_host; every rank drains the same groups in
     the same order, so the collectives match).  Returns, per group,
     [(scores int32[nentries], maps int32[nentries, n1] or None)] in
-    query order, entries in database file order."""
-    out = []
-    for group in launched:
-        K, lsoln = len(group.queries), group.lsoln
-        scores = np.zeros((K, nentries), np.int32)
-        maps = (np.full((K, nentries, group.n1r), -1, np.int32) if lsoln
-                else None)
-        for dev, index, s, m in group.outputs:  # one copy per output
-            if gather:
-                index = to_host(torch.from_numpy(index).to(dev))
-                s = to_host(s, dim=1)
-                m = to_host(m, dim=1) if lsoln else None
-            else:
-                s = s.cpu().numpy()
-                m = m.cpu().numpy() if lsoln else None
-            valid = index >= 0  # drop padding entries
-            scores[:, index[valid]] = s[:, valid]
-            if lsoln:
-                maps[:, index[valid]] = m[:, valid]
-        out.append([(scores[k], None if maps is None else maps[k, :, :q.order])
-                    for k, q in enumerate(group.queries)])
-    return out
+    query order, entries in database file order.  The bytes of scores
+    and maps brought to the host are recorded on the
+    ``kernel_search.drain`` span (trace.py)."""
+    sp = trace.begin("kernel_search.drain")
+    nbytes = 0
+    try:
+        out = []
+        for group in launched:
+            K, lsoln = len(group.queries), group.lsoln
+            scores = np.zeros((K, nentries), np.int32)
+            maps = (np.full((K, nentries, group.n1r), -1, np.int32) if lsoln
+                    else None)
+            for dev, index, s, m in group.outputs:  # one copy per output
+                if gather:
+                    index = to_host(torch.from_numpy(index).to(dev))
+                    s = to_host(s, dim=1)
+                    m = to_host(m, dim=1) if lsoln else None
+                else:
+                    s = s.cpu().numpy()
+                    m = m.cpu().numpy() if lsoln else None
+                nbytes += s.nbytes + (m.nbytes if lsoln else 0)
+                valid = index >= 0  # drop padding entries
+                scores[:, index[valid]] = s[:, valid]
+                if lsoln:
+                    maps[:, index[valid]] = m[:, valid]
+            out.append([(scores[k],
+                         None if maps is None else maps[k, :, :q.order])
+                        for k, q in enumerate(group.queries)])
+        return out
+    finally:
+        trace.end(sp, nbytes)

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 
 import torch
 
+from . import trace
 from .core.constants import DEFAULT_MAXSTART, DEFAULTS, MAXDIM, SAParams
 from .core.warmup import warm_backend
 from .io.pack import (DEFAULT_BUCKETS, PackedDB, PackedQuery,
@@ -98,10 +99,14 @@ class SearchSession:
     def resolve_query(self, name: str) -> PackedQuery | None:
         """Resolve a query by identifier from the resident DB (query-list
         mode, cudaSaTabsearch.cu:730-788)."""
-        loc = self.db.lookup(name)
-        if loc is None:
-            return None
-        return pack_query(self.db.entry(*loc))
+        sp = trace.begin("session.resolve_query")
+        try:
+            loc = self.db.lookup(name)
+            if loc is None:
+                return None
+            return pack_query(self.db.entry(*loc))
+        finally:
+            trace.end(sp)
 
     def _launch(self, queries, tags, lorder: bool, lsoln: bool):
         cfg = self.config
@@ -122,19 +127,25 @@ class SearchSession:
         in query tiles of at most two launches per shard.  Every group is
         launched before the stream's one drain (as the JAX package
         dispatches every group, then assembles them)."""
-        tags = list(range(self._query_tag, self._query_tag + len(queries)))
-        self._query_tag += len(queries)
-        groups: dict[int, list[int]] = {}
-        for i, q in enumerate(queries):
-            groups.setdefault(round8(q.order), []).append(i)
-        launched = [self._launch([queries[i] for i in idxs],
-                                 [tags[i] for i in idxs], lorder, lsoln)
-                    for idxs in groups.values()]
-        out: list = [None] * len(queries)
-        for idxs, results in zip(groups.values(), self._drain(launched)):
-            for i, res in zip(idxs, results):
-                out[i] = res
-        return out
+        sp = trace.begin("session.search_many", self._query_tag,
+                         len(queries))
+        try:
+            tags = list(range(self._query_tag,
+                              self._query_tag + len(queries)))
+            self._query_tag += len(queries)
+            groups: dict[int, list[int]] = {}
+            for i, q in enumerate(queries):
+                groups.setdefault(round8(q.order), []).append(i)
+            launched = [self._launch([queries[i] for i in idxs],
+                                     [tags[i] for i in idxs], lorder, lsoln)
+                        for idxs in groups.values()]
+            out: list = [None] * len(queries)
+            for idxs, results in zip(groups.values(), self._drain(launched)):
+                for i, res in zip(idxs, results):
+                    out[i] = res
+            return out
+        finally:
+            trace.end(sp)
 
     def search(self, query: PackedQuery, *, lorder: bool = True,
                query_tag: int | None = None,
@@ -142,8 +153,12 @@ class SearchSession:
         if query_tag is None:
             query_tag = self._query_tag
         self._query_tag = query_tag + 1
-        return self._drain([self._launch([query], [query_tag], lorder,
-                                         lsoln)])[0][0]
+        sp = trace.begin("session.search", query_tag, 1)
+        try:
+            return self._drain([self._launch([query], [query_tag], lorder,
+                                             lsoln)])[0][0]
+        finally:
+            trace.end(sp)
 
 
 def _load_db(dbfile: str, cfg: SessionConfig, pad_to: int) -> PackedDB:

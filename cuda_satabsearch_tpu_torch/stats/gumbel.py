@@ -1,7 +1,8 @@
 """Score normalization and Gumbel statistics.
 
 Reimplements the reference's nvcc_src_current/gumbelstats.c:50-94.
-Copy of cuda_satabsearch_tpu/stats/gumbel.py (that package imports jax).
+Copy of cuda_satabsearch_tpu/stats/gumbel.py (that package imports jax),
+with a span around ``score_stats`` (trace.py).
 
 The reference declares ``z_gumbel(int x, ...)`` but every call site
 passes the *double* norm2 score (cudaSaTabsearch.cu:1105-1106), which C
@@ -18,6 +19,7 @@ import math
 
 import numpy as np
 
+from .. import trace
 from ..core.constants import GUMBEL_A, GUMBEL_B
 
 EULER_GAMMA = 0.5772156649015328606
@@ -55,7 +57,11 @@ def score_stats(score, qn, dbn, *, a: float = GUMBEL_A, b: float = GUMBEL_B,
                 compat: bool = False):
     """(norm2, z, p) triple for a raw score, as printed per result line
     (cudaSaTabsearch.cu:1102-1114)."""
-    n2s = norm2(score, qn, dbn)
-    z = z_gumbel(n2s, a, b, compat=compat)
-    p = pv_gumbel(z)
-    return n2s, z, p
+    sp = trace.begin("stats.score_stats")
+    try:
+        n2s = norm2(score, qn, dbn)
+        z = z_gumbel(n2s, a, b, compat=compat)
+        p = pv_gumbel(z)
+        return n2s, z, p
+    finally:
+        trace.end(sp)

@@ -120,14 +120,21 @@ def test_dryrun_multichip_cpu(n, capsys):
 
 
 def test_latency_budget_cpu():
-    """-c drives the whole script; the device lines are not measured."""
+    """-c drives the whole script: a line per span of the search path,
+    each the median self time from the program's spans, then the whole
+    query, which is no less than the spans' self times together."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = latency_budget.main(["-c", "--restarts", "2", "--reps", "1"])
     lines = buf.getvalue().splitlines()
-    assert rc == 0 and len(lines) == 5
-    assert "on cpu (586-entry DB" in lines[0]
-    assert lines[1].strip().startswith("sa_search host enqueue")
-    assert lines[2].strip().startswith("full search") and " ms (" in lines[2]
-    assert lines[3].endswith("not measured")
-    assert lines[4].endswith("not measured")
+    assert rc == 0 and len(lines) == 7
+    assert "on cpu (586-entry DB" in lines[0] and "over 1 queries" in lines[0]
+    names = [ln.split()[0] for ln in lines[1:6]]
+    assert names == ["session.search", "kernel_search.launch_group",
+                     "kernel_search.enqueue", "kernel_search.drain",
+                     "stats.score_stats"]
+    ms = [float(ln.split()[-2]) for ln in lines[1:]]
+    assert all(ln.endswith(" ms") for ln in lines[1:])
+    assert all(v > 0 for v in ms)
+    assert lines[6].split()[:2] == ["whole", "query"]
+    assert ms[-1] >= sum(ms[:-1]) - 1e-3  # rounding of the printed values
