@@ -9,8 +9,12 @@ over the queries of its self time: its duration less its children's.  ``session.
 between launch and drain and the building of the result;
 ``kernel_search.launch_group``'s the query pack and upload and the tags
 upload; ``kernel_search.enqueue`` the launches; ``kernel_search.drain``
-the wait for the device, the copies and the scatter to file order.  The
-last line is the median of the whole query.
+the wait for the device, the copies and the scatter to file order.  On a
+card the queries after the first two replay a CUDA graph
+(ops/kernel_search.QueryGraphs): there ``launch_group``'s own is the
+query's staging, ``enqueue`` the replay and ``drain`` the wait and the
+copy out of pinned memory.  The last line is the median of the whole
+query.
 
     python -m cuda_satabsearch_tpu_torch.latency_budget [--restarts 128]
         [--reps 7] [--lsoln] [-c]

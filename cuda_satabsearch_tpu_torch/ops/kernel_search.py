@@ -17,11 +17,13 @@ int32[K, E_shard] output; scores and maps come back as int32.  As the
 JAX package's dispatch / assemble pair is split, ``launch_group``
 launches a group and ``drain`` brings any number of launched groups
 back, so that a stream of groups is launched whole before its one
-drain.
+drain.  ``QueryGraphs`` runs one query against one shard, from its
+staging to its drain, as a CUDA graph replayed per query width.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,7 +34,9 @@ from ..core.constants import DEFAULTS, SAParams
 from ..parallel.distributed import to_host
 from .common import pack_tab, prepare_query, round8
 from .engine import search_plan_plain
-from .sa_kernel import MAX_BUCKETS, descriptor, sa_search, upload_tags
+from .rng import M32
+from .sa_kernel import (MAX_BUCKETS, descriptor, device_guard, sa_search,
+                        upload_tags)
 
 NARROW_MAX = 32  # widest bucket of the narrow launch class
 # queries of one launch: the JAX package's K_TILE (ops/pallas_search.py
@@ -131,29 +135,53 @@ def make_plan(buckets: list[DeviceBucket], device=None) -> Plan:
     return Plan(device=device, buckets=buckets, index=index, classes=classes)
 
 
+def query_layout(K: int, n1r: int):
+    """Where K queries padded to n1r lie in one byte buffer, as the kernel
+    reads them: [(dtype, shape, offset, bytes)] of qtypes int8[K, n1r],
+    qtab uint8[K, n1r, n1r], qdmat f32[K, n1r, n1r] and n1s int32[K],
+    each 256-byte aligned, and the buffer's size in bytes."""
+    layout, at = [], 0
+    for dtype, shape in ((np.int8, (K, n1r)), (np.uint8, (K, n1r, n1r)),
+                         (np.float32, (K, n1r, n1r)), (np.int32, (K,))):
+        nbytes = np.dtype(dtype).itemsize * math.prod(shape)
+        layout.append((dtype, shape, at, nbytes))
+        at += -(-nbytes // 256) * 256
+    return layout, at
+
+
+_TORCH_DTYPE = {np.int8: torch.int8, np.uint8: torch.uint8,
+                np.float32: torch.float32, np.int32: torch.int32}
+
+
+def query_parts(buf, K: int, n1r: int) -> list:
+    """The four parts of ``query_layout(K, n1r)`` as views of ``buf``, a
+    uint8 numpy array or tensor."""
+    tensor = torch.is_tensor(buf)
+    return [buf[o:o + n].view(_TORCH_DTYPE[d] if tensor else d).reshape(s)
+            for d, s, o, n in query_layout(K, n1r)[0]]
+
+
+def stage_queries(queries, views) -> None:
+    """Write K queries, padded to n1r, into ``views``: the four parts of
+    ``query_layout(K, n1r)`` in a numpy buffer whose gaps are zero
+    (``query_parts``).  Distances off the bf16 grid raise ValueError."""
+    n1r = views[0].shape[1]
+    for k, q in enumerate(queries):
+        views[0][k], views[1][k], views[2][k] = prepare_query(q, n1r)
+        views[3][k] = q.order
+    if not on_bf16_grid(views[2]):
+        raise ValueError("query distances are not on the bf16 grid "
+                         "(pack queries with io/pack.pack_query)")
+
+
 def pack_queries(queries, n1r: int, device):
     """(qtypes int8[K, n1r], qtab uint8[K, n1r, n1r], qdmat
     f32[K, n1r, n1r], n1s int32[K]) for K queries padded to n1r, uploaded
-    in one copy (views of one byte buffer, 256-byte aligned)."""
-    qts, qtabs, qdmats = [], [], []
-    for q in queries:
-        qtypes, qtabp, qdmat = prepare_query(q, n1r)
-        qts.append(qtypes.astype(np.int8))
-        qtabs.append(qtabp.astype(np.uint8))
-        qdmats.append(qdmat)
-    parts = (np.stack(qts), np.stack(qtabs), np.stack(qdmats),
-             np.array([q.order for q in queries], np.int32))
-    if not on_bf16_grid(parts[2]):
-        raise ValueError("query distances are not on the bf16 grid "
-                         "(pack queries with io/pack.pack_query)")
-    offsets = np.cumsum([0] + [-(-p.nbytes // 256) * 256 for p in parts])
-    buf = np.zeros(int(offsets[-1]), np.uint8)
-    for p, o in zip(parts, offsets):
-        buf[o:o + p.nbytes] = p.reshape(-1).view(np.uint8)
-    dbuf = torch.from_numpy(buf).to(device)
-    return tuple(
-        dbuf[o:o + p.nbytes].view(getattr(torch, str(p.dtype))).view(p.shape)
-        for p, o in zip(parts, offsets))
+    in one copy (views of one byte buffer, ``query_layout``)."""
+    K = len(queries)
+    buf = np.zeros(query_layout(K, n1r)[1], np.uint8)
+    stage_queries(queries, query_parts(buf, K, n1r))
+    return tuple(query_parts(torch.from_numpy(buf).to(device), K, n1r))
 
 
 def tiles(K: int) -> list[slice]:
@@ -259,3 +287,161 @@ def drain(launched: list[Launched], nentries: int, gather: bool = False):
         return out
     finally:
         trace.end(sp, nbytes)
+
+
+# searches that QueryGraphs replayed, and the graphs it captured
+graph_replays = 0
+graph_captures = 0
+
+
+def file_order(index: np.ndarray, nentries: int) -> np.ndarray:
+    """The plan column of each entry in file order (int64 [nentries]):
+    the inverse of a one-shard plan's ``index``, its padding columns
+    (-1) dropped.  Raises ValueError unless the plan holds every entry
+    exactly once."""
+    cols = np.flatnonzero(index >= 0)
+    inverse = np.full(nentries, -1, np.int64)
+    inverse[index[cols]] = cols
+    if len(cols) != nentries or (inverse < 0).any():
+        raise ValueError("the plan does not hold every entry exactly once")
+    return inverse
+
+
+def capture_graph(fn):
+    """Capture the device work of ``fn()`` as a CUDA graph; returns the
+    graph's replay (the tensors ``fn`` allocates stay in the graph's
+    private memory pool)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+@dataclass
+class _Graph:
+    """One key's captured search and the buffers it reads and writes by
+    address, kept as long as the graph."""
+
+    replay: object
+    launches: int  # SA kernel launches of one replay
+    staging: torch.Tensor  # uint8: the query in query_layout(1, n1r), the tag
+    parts: list  # numpy views of the query's parts in ``staging``
+    tag: np.ndarray  # uint32[1]: the tag's place in ``staging``
+    device: torch.Tensor  # uint8: ``staging``'s copy on the device
+    scores: torch.Tensor  # int32 [1, E], file order
+    maps: torch.Tensor | None  # int32 [1, E, n1r], file order, under LSOLN
+
+
+class QueryGraphs:
+    """One query's search against a one-shard plan, from staging to drain,
+    as one CUDA graph per key (n1r, lorder, lsoln), replayed.
+
+    A graph holds one copy of the query's staging buffer (pinned host
+    memory, ``query_layout`` and the tag) to the device; the
+    ``sa_search`` call that ``launch_group`` makes, with the same seed,
+    chains and params; the gather of the plan's columns into file order
+    (``file_order``); and one copy of the file-order scores (and maps
+    under LSOLN) into pinned host memory.  A key's first two searches
+    take the eager path, so that a fresh process's first search pays no
+    capture; the second captures the key's graph once its results are
+    drained (``searched``), and every later one replays it (``search``).
+    Searches run one at a time: each waits for its results before the
+    next stages.  ``capture`` turns a function into a replay
+    (``capture_graph`` on a card)."""
+
+    def __init__(self, plan: Plan, nentries: int, *, seed: int, c_par: int,
+                 r_seq: int, params: SAParams = DEFAULTS,
+                 capture=capture_graph):
+        self.plan = plan
+        self.inverse = torch.from_numpy(file_order(plan.index, nentries)
+                                        ).to(plan.device)
+        self.search_kw = dict(seed=seed, c_par=c_par, r_seq=r_seq,
+                              params=params)
+        self.capture = capture
+        self.pin = plan.device.type == "cuda"
+        self.event = torch.cuda.Event() if self.pin else None
+        self.seen: set = set()
+        self.graphs: dict = {}
+
+    def has(self, query, lorder: bool, lsoln: bool) -> bool:
+        """Whether a search of ``query`` replays a graph."""
+        return (round8(query.order), lorder, lsoln) in self.graphs
+
+    def searched(self, query, lorder: bool, lsoln: bool) -> None:
+        """Note an eager search of ``query``; at its key's second, capture
+        the key's graph."""
+        key = (round8(query.order), lorder, lsoln)
+        if key in self.seen:
+            with device_guard(self.plan.device):
+                self._capture(key)
+        self.seen.add(key)
+
+    def _capture(self, key) -> None:
+        global graph_captures
+        n1r, lorder, lsoln = key
+        size = query_layout(1, n1r)[1]
+        staging = torch.zeros(size + 4, dtype=torch.uint8,
+                              pin_memory=self.pin)
+        dev = torch.empty_like(staging, device=self.plan.device)
+        parts, tags = query_parts(dev, 1, n1r), dev[size:].view(torch.int32)
+        E = len(self.inverse)
+        scores = torch.empty((1, E), dtype=torch.int32, pin_memory=self.pin)
+        maps = (torch.empty((1, E, n1r), dtype=torch.int32,
+                            pin_memory=self.pin) if lsoln else None)
+
+        def run():
+            dev.copy_(staging, non_blocking=True)
+            s, m = sa_search(*parts, self.plan, tags=tags, lorder=lorder,
+                             lsoln=lsoln, **self.search_kw)
+            scores.copy_(s.index_select(1, self.inverse), non_blocking=True)
+            if lsoln:
+                maps.copy_(m.index_select(1, self.inverse),
+                           non_blocking=True)
+
+        before = sa_search.launches
+        replay = self.capture(run)
+        launches, sa_search.launches = sa_search.launches - before, before
+        graph_captures += 1
+        host = staging.numpy()
+        self.graphs[key] = _Graph(
+            replay, launches, staging, query_parts(host, 1, n1r),
+            host[size:].view(np.uint32), dev, scores, maps)
+
+    def search(self, query, tag: int, *, lorder: bool, lsoln: bool):
+        """Search ``query`` under its tag by replaying its key's graph
+        (``has``).  Returns (scores int32[E], maps int32[E, n1] or None),
+        file order, in arrays of their own.  The spans are the eager
+        path's: ``kernel_search.launch_group`` (the staging and the
+        replay), ``kernel_search.enqueue`` (the replay) and
+        ``kernel_search.drain`` (the wait and the copy-out, with the
+        bytes brought to the host)."""
+        global graph_replays
+        g = self.graphs[(round8(query.order), lorder, lsoln)]
+        sp = trace.begin("kernel_search.launch_group", tag, 1)
+        try:
+            stage_queries([query], g.parts)
+            g.tag[0] = tag & M32
+            esp = trace.begin("kernel_search.enqueue", tag, 1)
+            try:
+                with device_guard(self.plan.device):
+                    g.replay()
+                    if self.event is not None:
+                        self.event.record()
+            finally:
+                trace.end(esp)
+            graph_replays += 1
+            sa_search.launches += g.launches
+        finally:
+            trace.end(sp)
+        sp = trace.begin("kernel_search.drain")
+        nbytes = 0
+        try:
+            if self.event is not None:
+                self.event.synchronize()
+            scores = g.scores.numpy()[0].copy()
+            maps = (g.maps.numpy()[0, :, :query.order].copy() if lsoln
+                    else None)
+            nbytes = g.scores.nbytes + (g.maps.nbytes if lsoln else 0)
+            return scores, maps
+        finally:
+            trace.end(sp, nbytes)

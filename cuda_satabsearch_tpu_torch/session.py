@@ -17,7 +17,9 @@ On a card the session brings up each device once (core/warmup.py:
 the start-up kernel, the SA kernel's module, a search's launch path)
 after the DB load and before the upload, as the JAX package orders
 load -> warm -> upload, and reports the times on stderr.  There is no
-compile cache.
+compile cache.  On one card, ``search`` replays a CUDA graph per query
+width once the width has been searched twice
+(ops/kernel_search.QueryGraphs).
 """
 
 from __future__ import annotations
@@ -35,11 +37,12 @@ from .io.pack import (DEFAULT_BUCKETS, PackedDB, PackedQuery,
                       pack_database, pack_query)
 from .io import native
 from .io.parser import TableauEntry, read_database
-from .ops.common import round8
+from .ops.common import C_MAX, round8
+from .ops.kernel_search import QueryGraphs
 from .parallel import distributed
 from .parallel.mesh import make_mesh, mesh_shards
-from .ops.search import (SearchResult, drain_db_many, launch_db_many,
-                         resolve_backend, upload_db)
+from .ops.search import (SearchResult, choose_chains, drain_db_many,
+                         launch_db_many, resolve_backend, upload_db)
 from .stats.gumbel import score_stats
 
 
@@ -91,6 +94,16 @@ class SearchSession:
                 torch.cuda.synchronize(d)
         self.upload_ms = (time.perf_counter() - t0) * 1000.0
         self._query_tag = 0
+        # one query's search as a replayed CUDA graph, where the session
+        # searches one card with the kernel: no mesh, so one shard and no
+        # gather (ops/kernel_search.QueryGraphs)
+        self.graphs = None
+        if uses_graphs(self.backend, self.mesh) and self.db.nentries:
+            c_par, r_seq = choose_chains(cfg.maxstart,
+                                         min(cfg.c_max, C_MAX))
+            self.graphs = QueryGraphs(self.device_db[0], self.db.nentries,
+                                      seed=cfg.seed, c_par=c_par,
+                                      r_seq=r_seq, params=cfg.params)
 
     @property
     def nentries(self) -> int:
@@ -150,15 +163,40 @@ class SearchSession:
     def search(self, query: PackedQuery, *, lorder: bool = True,
                query_tag: int | None = None,
                lsoln: bool = True) -> SearchResult:
+        """Search one query under ``query_tag`` (default: the session's
+        next tag).  Where the session searches one card with the kernel
+        (``uses_graphs``), a query whose key (round8 order, lorder,
+        lsoln) was searched twice before replays that key's CUDA graph,
+        captured after the second (ops/kernel_search.QueryGraphs);
+        otherwise it is launched and drained as ``search_many`` does.
+        The results are the same, bit for bit."""
         if query_tag is None:
             query_tag = self._query_tag
         self._query_tag = query_tag + 1
         sp = trace.begin("session.search", query_tag, 1)
         try:
-            return self._drain([self._launch([query], [query_tag], lorder,
-                                             lsoln)])[0][0]
+            graphs = self.graphs
+            if graphs is not None and graphs.has(query, lorder, lsoln):
+                scores, maps = graphs.search(query, query_tag, lorder=lorder,
+                                             lsoln=lsoln)
+                return SearchResult(scores=scores, ssemaps=maps,
+                                    names=self.db.names,
+                                    orders=self.db.orders,
+                                    query_order=query.order,
+                                    maxstart=self.config.maxstart)
+            result = self._drain([self._launch([query], [query_tag], lorder,
+                                               lsoln)])[0][0]
+            if graphs is not None:
+                graphs.searched(query, lorder, lsoln)
+            return result
         finally:
             trace.end(sp)
+
+
+def uses_graphs(backend: str, mesh) -> bool:
+    """Whether ``search`` replays CUDA graphs: the kernel's backend on one
+    card, with no mesh (one shard, nothing gathered across processes)."""
+    return backend == "cuda" and mesh is None
 
 
 def _load_db(dbfile: str, cfg: SessionConfig, pad_to: int) -> PackedDB:
