@@ -24,7 +24,7 @@ staging to its drain, as a CUDA graph replayed per query width.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -32,6 +32,7 @@ import torch
 from .. import trace
 from ..core.constants import DEFAULTS, SAParams
 from ..parallel.distributed import to_host
+from . import sa_kernel
 from .common import pack_tab, prepare_query, round8
 from .engine import search_plan_plain
 from .rng import M32
@@ -64,6 +65,8 @@ class LaunchClass:
     buckets: list  # [(DeviceBucket, first output column)]
     d2max: int  # the widest bucket: sizes the launch's shared memory
     desc: object  # the kernel's descriptor (ops/sa_kernel.descriptor)
+    # (n1r, c_par, lsoln) -> CTA slots of one launch (``class_slots``)
+    slots: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -75,6 +78,7 @@ class Plan:
     buckets: list[DeviceBucket]  # output order
     index: np.ndarray  # int32 [E]: concatenated bucket indices
     classes: list[LaunchClass]
+    sms: int  # the device's SMs; 0 off a card
 
     @property
     def nentries(self) -> int:
@@ -132,7 +136,46 @@ def make_plan(buckets: list[DeviceBucket], device=None) -> Plan:
                                        desc=descriptor(members)))
     index = (np.concatenate([b.index for b in buckets]) if buckets
              else np.zeros(0, np.int32))
-    return Plan(device=device, buckets=buckets, index=index, classes=classes)
+    return Plan(device=device, buckets=buckets, index=index, classes=classes,
+                sms=sm_count(device))
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of CUDA device ``device``; 0 for any other device."""
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def class_slots(plan: Plan, cls: LaunchClass, n1r: int, c_par: int,
+                lsoln: bool) -> int:
+    """CTAs of one launch of ``cls`` that the card holds at once: its SMs
+    times the CTAs of the class's kernel resident on one SM
+    (ops/sa_kernel.occupancy), taken once per class and (n1r, c_par,
+    lsoln), after the class's first launch; 0 off a card."""
+    key = (n1r, c_par, lsoln)
+    if key not in cls.slots:
+        slots = 0
+        if plan.sms:
+            with device_guard(plan.device):
+                slots = plan.sms * sa_kernel.occupancy(cls.d2max, n1r,
+                                                       c_par, lsoln)[0]
+        cls.slots[key] = slots
+    return cls.slots[key]
+
+
+def launch_figures(plan: Plan, K: int, n1r: int, *, c_par: int, r_seq: int,
+                   lsoln: bool, maxiter: int) -> tuple[int, int, int]:
+    """(ctas, cta_slots, chain_moves) of the SA launches that K queries
+    padded to n1r make against ``plan`` (one per launch class; the plain
+    engine runs the same plan): the CTAs of their grids, one per
+    (column, query); their CTA slots (``class_slots``), summed; and the
+    dependent moves of one chain, maxiter x r_seq, the same in every
+    launch.  The figures of a ``kernel_search.enqueue`` span."""
+    return (K * plan.nentries,
+            sum(class_slots(plan, cls, n1r, c_par, lsoln)
+                for cls in plan.classes),
+            maxiter * r_seq)
 
 
 def query_layout(K: int, n1r: int):
@@ -232,13 +275,18 @@ def launch_group(queries, shards: list[Plan], *, lorder: bool, lsoln: bool,
             for t in tiles(len(queries)):
                 tsp = trace.begin("kernel_search.enqueue",
                                   query_tags[t.start], t.stop - t.start)
+                figures = trace.NO_FIGURES
                 try:
                     parts.append(fn(*(x[t] for x in q), plan, seed=seed,
                                     tags=tags[t], c_par=c_par, r_seq=r_seq,
                                     lorder=lorder, lsoln=lsoln,
                                     params=params))
+                    if tsp is not None:
+                        figures = launch_figures(
+                            plan, t.stop - t.start, n1r, c_par=c_par,
+                            r_seq=r_seq, lsoln=lsoln, maxiter=params.maxiter)
                 finally:
-                    trace.end(tsp)
+                    trace.end(tsp, 0, figures)
             s, m = parts[0] if len(parts) == 1 else (
                 torch.cat([p[0] for p in parts]),
                 torch.cat([p[1] for p in parts]) if lsoln else None)
@@ -324,6 +372,7 @@ class _Graph:
 
     replay: object
     launches: int  # SA kernel launches of one replay
+    figures: tuple  # launch_figures of one replay
     staging: torch.Tensor  # uint8: the query in query_layout(1, n1r), the tag
     parts: list  # numpy views of the query's parts in ``staging``
     tag: np.ndarray  # uint32[1]: the tag's place in ``staging``
@@ -402,9 +451,13 @@ class QueryGraphs:
         replay = self.capture(run)
         launches, sa_search.launches = sa_search.launches - before, before
         graph_captures += 1
+        kw = self.search_kw
+        figures = launch_figures(self.plan, 1, n1r, c_par=kw["c_par"],
+                                 r_seq=kw["r_seq"], lsoln=lsoln,
+                                 maxiter=kw["params"].maxiter)
         host = staging.numpy()
         self.graphs[key] = _Graph(
-            replay, launches, staging, query_parts(host, 1, n1r),
+            replay, launches, figures, staging, query_parts(host, 1, n1r),
             host[size:].view(np.uint32), dev, scores, maps)
 
     def search(self, query, tag: int, *, lorder: bool, lsoln: bool):
@@ -412,7 +465,8 @@ class QueryGraphs:
         (``has``).  Returns (scores int32[E], maps int32[E, n1] or None),
         file order, in arrays of their own.  The spans are the eager
         path's: ``kernel_search.launch_group`` (the staging and the
-        replay), ``kernel_search.enqueue`` (the replay) and
+        replay), ``kernel_search.enqueue`` (the replay, with the captured
+        launches' figures) and
         ``kernel_search.drain`` (the wait and the copy-out, with the
         bytes brought to the host)."""
         global graph_replays
@@ -428,7 +482,7 @@ class QueryGraphs:
                     if self.event is not None:
                         self.event.record()
             finally:
-                trace.end(esp)
+                trace.end(esp, 0, g.figures)
             graph_replays += 1
             sa_search.launches += g.launches
         finally:

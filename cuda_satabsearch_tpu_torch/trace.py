@@ -18,7 +18,12 @@ the bound is counted in ``dropped()``.  Recording adds no
 synchronisation, event or copy on the device.  One thread records.
 
 Each ``kernel_search.drain`` span carries, in ``nbytes``, the bytes of
-scores and maps that the drain brought to the host.
+scores and maps that the drain brought to the host.  Each
+``kernel_search.enqueue`` span carries the figures of the SA launches it
+made (ops/kernel_search.launch_figures): ``ctas``, the CTAs of their
+grids; ``cta_slots``, for each launch the card's SMs times the CTAs of
+its launch class resident on one SM, summed (0 off a card); and
+``chain_moves``, maxiter x r_seq, the dependent moves of one chain.
 
     sp = trace.begin("session.search", tag, nqueries)
     try:
@@ -36,6 +41,7 @@ from typing import NamedTuple
 from torch.autograd import profiler as _profiler
 
 BOUND = 1 << 20  # spans kept in memory
+NO_FIGURES = (0, 0, 0)  # (ctas, cta_slots, chain_moves): no SA launches
 
 # the span names of the search path, from the entry point down
 SPANS = ("session.resolve_query", "session.search", "session.search_many",
@@ -53,13 +59,18 @@ class Span(NamedTuple):
     tag: int  # the first query tag of a search span; -1: none
     queries: int  # queries of a search span; 0: none
     nbytes: int  # bytes brought to the host (kernel_search.drain); else 0
+    # the SA launches of a kernel_search.enqueue span; else 0
+    ctas: int = 0  # CTAs in their grids
+    cta_slots: int = 0  # SMs x resident CTAs per SM of each, summed
+    chain_moves: int = 0  # maxiter x r_seq: one chain's dependent moves
 
 
 class _Recorder:
     def __init__(self):
         self.forced = 0  # depth of recording() blocks
         # closed spans as plain tuples, which the collector need not track:
-        # (name, start_ns, sid, parent, request, tag, queries, end_ns, nbytes)
+        # (name, start_ns, sid, parent, request, tag, queries, end_ns, nbytes,
+        # ctas, cta_slots, chain_moves)
         self.closed: list[tuple] = []
         self.dropped = 0
         self.stack: list[tuple] = []  # the open spans' tokens
@@ -88,15 +99,17 @@ def begin(name: str, tag: int = -1, queries: int = 0):
     return token
 
 
-def end(token, nbytes: int = 0) -> None:
-    """Close the span ``begin`` returned (a no-op for None)."""
+def end(token, nbytes: int = 0, figures: tuple = NO_FIGURES) -> None:
+    """Close the span ``begin`` returned (a no-op for None), with its
+    ``nbytes`` and its launch ``figures`` (ctas, cta_slots,
+    chain_moves)."""
     if token is None:
         return
     t = time.time_ns()
     r = _rec
     r.stack.pop()
     if len(r.closed) < BOUND:
-        r.closed.append(token + (t, nbytes))
+        r.closed.append(token + (t, nbytes, *figures))
     else:
         r.dropped += 1
 
@@ -114,8 +127,8 @@ def recording():
 def spans() -> list[Span]:
     """The spans recorded so far, in the order they ended."""
     return [Span(name, start, end, sid, parent, request, tag, queries,
-                 nbytes)
-            for name, start, sid, parent, request, tag, queries, end, nbytes
+                 *rest)
+            for name, start, sid, parent, request, tag, queries, end, *rest
             in _rec.closed]
 
 
