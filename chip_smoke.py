@@ -19,10 +19,12 @@ DB.  Phases:
    supplied stream: bitwise scores and maps, on launch plans that mix
    bucket widths 8-112 in both launch classes with padding rows, K 1-3
    queries of mixed orders, LORDER / LSOLN T/F, c_par 100 / 128, r_seq
-   1 / 3, and c_par 128 x r_seq 32 (the r = 4096 split);
+   1 / 3, and c_par 128 x r_seq 32 (the r = 4096 split), whose
+   launches split the restarts over CTAs (ops/sa_kernel.restart_split;
+   split launches counted);
 2. the same cases on the seeded stream: the kernel derives every key
    from (seed, tag, file-order index) itself, the plain version takes
-   them from ops/rng.entry_keys: bitwise;
+   them from ops/rng.entry_keys: bitwise, split launches counted;
 3. CLI main path, d1ubia_ query vs the 586-entry DB at r=128: the
    reference's top 3, scores equal to the plain engine's on the card,
    at most two SA launches and the start-up kernel's launch; the
@@ -40,7 +42,7 @@ DB.  Phases:
 7. acceptance gate: d1ubia_, d1ae6h1 and d2phlb1 at r = 128 and
    r = 4096 on the kernel against the reference CPU oracle's outputs
    (tests/fixtures/refgolden/), ranked by norm2; d2phlb1 at r = 4096
-   must reach auc5 >= 0.9815;
+   must reach auc5 >= 0.9815 (its launches split);
 8. sharded vs unsharded search, bitwise on scores and maps, on the mesh
    [cuda:0, cuda:0] and on all visible devices, on both DBs, timed;
 9. the first and second search of fresh processes running the CLI on
@@ -63,8 +65,8 @@ DB.  Phases:
    and 19 SSEs) searched with LSOLN at r = 128 in one CLI process: each
    self-hit tops its column, at most 2 SA launches per round8 group;
    (c) the kernel == ops/golden.sa_chain per chain, bitwise, on supplied
-   uniforms (widths 8-112, n1 5/8/13/19, LORDER T/F); (d)
-   ``tools.tophits`` writes 10 bundles per query (the self-hit at
+   uniforms (widths 8-112, n1 5/8/13/19, LORDER T/F; c_par 8 x r_seq 2,
+   split); (d) ``tools.tophits`` writes 10 bundles per query (the self-hit at
    rmsd < 0.001 A where its map is the identity) and ``tools.ssemap``
    the HTML report; (e) the SA kernel's rate per bucket width (the
    numbers of ops/balance.py's RATE_M_IT_S) and balance_report's
@@ -326,6 +328,7 @@ def phase1(dev, out):
 
     urng = np.random.default_rng(7)
     worst, n, launches = 0, 0, 0
+    splits = sa_search.split_launches
     for ci, cfg, q, plan in kernel_cases(dev):
         n1r = q[0].shape[1]
         P = slots_per_restart(n1r)
@@ -343,12 +346,16 @@ def phase1(dev, out):
         if err:
             raise AssertionError(f"phase1 case {ci} {cfg}: max |diff| {err}")
         worst, n = max(worst, err), n + 1
+    splits = sa_search.split_launches - splits
     say(f"phase1 supplied stream, plan kernel == plain plan on the card: "
         f"{n} cases (plans of widths {sorted(set(itertools.chain(*PLAN_WIDTHS)))}"
         f", both classes, padding rows), max |diff| {worst} (tolerance 0: "
-        f"bitwise); at most {launches} launches per plan")
+        f"bitwise); at most {launches} launches per plan, {splits} of the "
+        f"launches with their restarts split")
     if launches != 2:
         raise AssertionError("a two-class plan did not take two launches")
+    if not splits:
+        raise AssertionError("no launch split its restarts")
     return worst
 
 
@@ -358,6 +365,7 @@ def phase2(dev, out):
     from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
 
     worst, n = 0, 0
+    splits = sa_search.split_launches
     for ci, cfg, q, plan in kernel_cases(dev):
         # tags beyond 2**31 too: the kernel takes their uint32 bits
         tags = [ci, 2 ** 31 + ci, 2 ** 32 + 7][:cfg["K"]]
@@ -371,9 +379,12 @@ def phase2(dev, out):
         if err:
             raise AssertionError(f"phase2 case {ci} {cfg}: max |diff| {err}")
         worst, n = max(worst, err), n + 1
+    splits = sa_search.split_launches - splits
     say(f"phase2 seeded stream, keys derived in the kernel == plain plan on "
         f"ops/rng.entry_keys' stream (ln_f32 on the card): {n} cases, max "
-        f"|diff| {worst} (tolerance 0: bitwise)")
+        f"|diff| {worst} (tolerance 0: bitwise); {splits} split launches")
+    if not splits:
+        raise AssertionError("no launch split its restarts")
     # ln u on the card vs on the CPU over every non-zero uniform
     # (k * 2**-23): where they differ, -c and the card may part ways
     grid = torch.arange(1, 2 ** 23, dtype=torch.float64).mul_(
@@ -760,15 +771,17 @@ def phase7(dev, out, card):
         "ms per query |")
     say("|---|---|---|---|---|---|---|---|")
     sa_search.launches = add_one.launches = 0
+    splits = sa_search.split_launches
     rows = parity_rows((128, 4096), backend="cuda", device=str(dev))
     launches, warm = sa_search.launches, add_one.launches
+    splits = sa_search.split_launches - splits
     for qname, n1, r, rep, ms in rows:
         say(f"| {qname} | {n1} | {r} | {rep.spearman:.4f} | "
             f"{rep.top10:.2f} | {rep.top50:.2f} | {rep.auc5:.4f} | "
             f"{ms:.3f} |")
     passed, text = verdict(rows)
-    say(f"phase7 gate: {text}; {launches} SA kernel and {warm} start-up "
-        f"kernel launches; card {card}")
+    say(f"phase7 gate: {text}; {launches} SA kernel ({splits} of them "
+        f"split) and {warm} start-up kernel launches; card {card}")
     if launches < 1 or warm < 1:
         raise AssertionError("the acceptance path did not run the kernels")
     if not passed:
@@ -1135,6 +1148,7 @@ def phase11c(dev, tmp, entries):
     plan = make_plan([prepare_bucket(b, dev) for b in db.buckets])
     c_par, r_seq = 8, 2
     cases, t0 = 0, time.perf_counter()
+    splits = sa_search.split_launches
     for size in (5, 8, 13, 19):
         query = pack_query(min(entries, key=lambda e: (abs(e.order - size),
                                                        e.name)))
@@ -1164,14 +1178,17 @@ def phase11c(dev, tmp, entries):
                         f"{db_entries[idx].order}): {scores[0, col]} vs "
                         f"{score}")
                 cases += 1
+    splits = sa_search.split_launches - splits
     say(f"phase11c kernel == golden.sa_chain per chain (c_par {c_par}, r_seq "
         f"{r_seq}, supplied uniforms, LSOLN; score and first maximal "
         f"chain's map, tolerance 0: bitwise): {cases} cases (query n1 5/8/"
         f"13/19 built, LORDER T/F, widths {[b.dim for b in db.buckets]} "
-        f"with a built and a random entry each); lockstep wall "
-        f"{time.perf_counter() - t0:.1f} s (host clock)")
+        f"with a built and a random entry each), {splits} split launches; "
+        f"lockstep wall {time.perf_counter() - t0:.1f} s (host clock)")
     if cases != 4 * 2 * len(db_entries):
         raise AssertionError(f"{cases} lockstep cases")
+    if not splits:
+        raise AssertionError("no launch split its restarts")
 
 
 def phase11d(tmp, qids, lsoln_out, card):
@@ -1512,11 +1529,13 @@ def report_occupancy(dev):
     lib = load_library().lib
     for cls, d2 in (("narrow", 32), ("wide", 112)):
         blocks, regs, local = occupancy(d2, 8, 128, True)
+        sblocks, sregs, slocal = occupancy(d2, 8, 128, True, split=True)
         smem = lib.sa_search_smem_bytes(8, d2, 128, 1)
         say(f"  {cls} class at d2 {d2}, n1r 8, c_par 128, LSOLN: {blocks} "
             f"CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), "
             f"{regs} registers, {local} local bytes per thread, {smem} B "
-            f"of shared memory per CTA")
+            f"of shared memory per CTA; split: {sblocks} CTAs per SM, "
+            f"{sregs} registers, {slocal} local bytes")
     # the earlier layout: f32 distances, int8 codes and types, int8 map,
     # reverse and best planes, int32 reduction, each region 16-byte
     # aligned

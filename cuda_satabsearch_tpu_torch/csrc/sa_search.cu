@@ -16,6 +16,14 @@
 // the K queries.  One CTA per (entry, query), one thread per chain
 // (blockDim = c_par <= 128); each thread runs its r_seq restarts in
 // order, the loop that replaces the TPU kernel's sequential grid axis.
+// Restart split: where a launch would fill few waves of the card's CTA
+// slots (ops/sa_kernel.restart_split: one query at r = 4096 is 586
+// CTAs against ~1,320 narrow slots), grid z = S splits each chain's
+// restarts over S CTAs per (entry, query), split z running restarts
+// [z r_seq / S, (z + 1) r_seq / S) of all c_par chains
+// (sa_plan_kernel<EW, QW, true>); each split writes its best score,
+// its first maximal chain and that chain's map, and sa_split_reduce,
+// launched after it on the same stream, makes the entry's result.
 // The entry's and the query's distances (bf16: every distance of the
 // packed DB and query is on the bf16 grid, io/pack.quantize_dmat, so
 // widening back to float is exact) and hi*8+lo codes are staged once in
@@ -29,24 +37,41 @@
 // before the dependent part of move it (on an H100 this timed the same
 // as drawing them in their own move).
 //
-// Bound.  A launch lasts as long as its longest chain's maxiter x r_seq
-// dependent moves: on an H100 a move takes ~4 us whether the CTA is
-// alone on the card or shares it with the whole 586-entry DB.  Timed by
+// Bound.  An unsplit launch that fits in one wave lasts as long as its
+// longest chain's maxiter x r_seq dependent moves: on an H100 a move
+// takes ~4 us whether the CTA is alone on the card or shares it with
+// the whole 586-entry DB.  So one query at r = 4096 (3,200 moves a
+// chain) leaves most of the card idle; split into many waves of short
+// CTAs, the launch runs at the card's throughput instead (13.5 -> 6.3
+// ms a query at S = 32).  Timed by
 // knocking parts out, the O(n1) delta's shared-memory reads (two
 // dependent levels per mapped SSE) take about half of a move, the
 // threefry draws about a tenth and the double-precision log less
 // (scripts/torch_sa_kernel_ab.py).  Device-memory bytes do not bound
 // it: each CTA reads its tables once.  Budget: <= 64 registers per
 // thread with 0 spills (__launch_bounds__(128, 8); ptxas -v prints
-// both: 46-48) and 40,480 B of shared memory per CTA at n1r 8, d2 112,
-// LSOLN, c_par 128 (sa_search_smem_bytes; 5 CTAs per SM).
+// both: 46-48; the split instantiations take (128, 10), which holds
+// them to the same 47-48 and 10 narrow CTAs per SM, where they would
+// take 54-56 and 9) and 40,480 B of shared memory per CTA at n1r 8, d2
+// 112, LSOLN, c_par 128 (sa_search_smem_bytes; 5 CTAs per SM).
 //
 // Bitwise contract with the plain version and the JAX package: scores
 // are integers; (u - eps) * n and temp * ln u are single IEEE float ops
 // (__fsub_rn / __fmul_rn, and the file is built with -fmad=false and
 // without --use_fast_math).  ln u is float(log(double(u))), the value
 // ops/rng.py ln_f32 computes with the same libdevice log on the card.
-// The first maximal chain wins.
+// The first maximal chain wins, its map the one of the first time
+// (restart, then move) it reached the max.  A split keeps that: each
+// chain's running max starts from maxscore_init in every split and is
+// replaced only by a strictly greater score, so split z holds, per
+// chain, the max over its restarts and its first occurrence there.  Let
+// G be the entry's max and c* the lowest chain that reaches it in any
+// split: every split in which c* reaches G has c* as its own first
+// maximal chain, and the lowest of those holds c*'s first occurrence in
+// restart order.  So the reduction takes the largest best score, then
+// the lowest winner, then the lowest split.  Where nothing beats
+// maxscore_init, every split reports chain 0 and a map of -1s, as the
+// unsplit kernel does.
 //
 // Random numbers: either a supplied stream f32[K, E, r_seq, P, c_par]
 // (E = the plan's output columns) with ln u in the acceptance slots, or
@@ -57,6 +82,7 @@
 // padding row, 0xffffffff as uint32); slot s of chain c is flat index
 // s * c_par + c.
 
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 
@@ -192,26 +218,37 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// The bucket of block x of a launch: the last one whose first block is
+// <= x.
+__device__ __forceinline__ const BucketDesc& block_bucket(
+    const PlanDesc& plan, int x) {
+  int bi = 0;
+  for (int i = 1; i < plan.nb; ++i)
+    if (x >= plan.b[i].first) bi = i;
+  return plan.b[bi];
+}
+
 // EW / QW: mask words of the entry's / the query's SSEs (1 for <= 32).
-template <int EW, int QW>
-__global__ void __launch_bounds__(128, 8) sa_plan_kernel(
+// SPLIT: grid z splits the restarts; the CTA writes its split's best
+// score and first maximal chain to part[2 p], part[2 p + 1] and that
+// chain's map to part_maps[p * n1r + i], p = (q * gridDim.x + x) *
+// gridDim.z + z, for sa_split_reduce.
+template <int EW, int QW, bool SPLIT>
+__global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
     const __grid_constant__ PlanDesc plan,
     const int8_t* __restrict__ qtypes, const uint8_t* __restrict__ qtab,
     const float* __restrict__ qdmat, const int* __restrict__ n1s, int n1r,
     uint32_t seed, const int* __restrict__ tags,
     const float* __restrict__ uniforms, int ecols, int r_seq, int lorder,
     int lsoln, SAParams p, int* __restrict__ out_scores,
-    int* __restrict__ out_maps) {
+    int* __restrict__ out_maps, int* __restrict__ part,
+    int8_t* __restrict__ part_maps) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int q = blockIdx.y;
   const int c = threadIdx.x;
   const int C = blockDim.x;
 
-  // this block's bucket: the last one whose first block is <= blockIdx.x
-  int bi = 0;
-  for (int i = 1; i < plan.nb; ++i)
-    if (static_cast<int>(blockIdx.x) >= plan.b[i].first) bi = i;
-  const BucketDesc& B = plan.b[bi];
+  const BucketDesc& B = block_bucket(plan, blockIdx.x);
   const int e = blockIdx.x - B.first;
   const int d2 = B.d2;
 
@@ -284,7 +321,10 @@ __global__ void __launch_bounds__(128, 8) sa_plan_kernel(
   if (lsoln)
     for (int i = 0; i < n1r; ++i) s_best[i * C] = -1;
 
-  for (int r = 0; r < r_seq; ++r) {
+  // this CTA's restarts: all of them, or split z's share
+  const int r_per = SPLIT ? r_seq / static_cast<int>(gridDim.z) : r_seq;
+  const int r_first = SPLIT ? static_cast<int>(blockIdx.z) * r_per : 0;
+  for (int r = r_first; r < r_first + r_per; ++r) {
     // restart key fold_in(entry_key, r), or this restart's supplied rows
     uint32_t rk0 = 0, rk1 = static_cast<uint32_t>(r);
     threefry2x32(ek0, ek1, rk0, rk1);
@@ -472,7 +512,11 @@ __global__ void __launch_bounds__(128, 8) sa_plan_kernel(
     }
   }
 
-  // per-entry max over chains; the lowest-index maximal chain wins
+  // per-entry (per-split) max over chains; the lowest-index maximal
+  // chain wins
+  const size_t prow =
+      (static_cast<size_t>(q) * gridDim.x + blockIdx.x) * gridDim.z +
+      blockIdx.z;
   s_red[c] = maxscore;
   __syncthreads();
   if (c == 0) {
@@ -485,29 +529,94 @@ __global__ void __launch_bounds__(128, 8) sa_plan_kernel(
     }
     s_red[C] = best;
     s_red[C + 1] = winner;
-    out_scores[row] = best;
+    if (SPLIT) {
+      part[2 * prow] = best;
+      part[2 * prow + 1] = winner;
+    } else {
+      out_scores[row] = best;
+    }
   }
   __syncthreads();
   if (lsoln) {
     const int8_t* wbest =
         reinterpret_cast<const int8_t*>(smem + L.best) + s_red[C + 1];
-    for (int i = c; i < n1r; i += C) out_maps[row * n1r + i] = wbest[i * C];
+    for (int i = c; i < n1r; i += C) {
+      if (SPLIT)
+        part_maps[prow * n1r + i] = wbest[i * C];
+      else
+        out_maps[row * n1r + i] = wbest[i * C];
+    }
+  }
+}
+
+// The result of each (entry, query) of a split launch from its S
+// splits' (best, winner) pairs and maps (sa_plan_kernel<EW, QW, true>):
+// the largest best score; of the splits that reach it, the one with the
+// lowest winner, then the lowest split, whose map is the entry's.  One
+// warp per (entry, query), on the split launch's grid x and y: lane l
+// keeps the first best of splits l, l + 32, ..., then the warp reduces
+// on the same order (score down, winner up, split up).
+__global__ void __launch_bounds__(32) sa_split_reduce(
+    const __grid_constant__ PlanDesc plan, int ecols, int n1r, int splits,
+    const int* __restrict__ part, const int8_t* __restrict__ part_maps,
+    int* __restrict__ out_scores, int* __restrict__ out_maps) {
+  const BucketDesc& B = block_bucket(plan, blockIdx.x);
+  const size_t row = static_cast<size_t>(blockIdx.y) * ecols + B.out +
+                     (blockIdx.x - B.first);
+  const size_t p0 =
+      (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * splits;
+  const int lane = threadIdx.x;
+  int best = INT_MIN, winner = INT_MAX, pick = INT_MAX;
+  for (int z = lane; z < splits; z += 32) {
+    const int s = part[2 * (p0 + z)], w = part[2 * (p0 + z) + 1];
+    if (s > best || (s == best && w < winner)) {
+      best = s;
+      winner = w;
+      pick = z;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const int s = __shfl_down_sync(~0u, best, off);
+    const int w = __shfl_down_sync(~0u, winner, off);
+    const int z = __shfl_down_sync(~0u, pick, off);
+    if (s > best || (s == best && (w < winner || (w == winner && z < pick)))) {
+      best = s;
+      winner = w;
+      pick = z;
+    }
+  }
+  if (lane == 0) out_scores[row] = best;
+  if (out_maps != nullptr) {
+    const int8_t* m = part_maps + (p0 + __shfl_sync(~0u, pick, 0)) * n1r;
+    for (int i = lane; i < n1r; i += 32) out_maps[row * n1r + i] = m[i];
   }
 }
 
 using KernelFn = void (*)(PlanDesc, const int8_t*, const uint8_t*,
                           const float*, const int*, int, uint32_t,
                           const int*, const float*, int, int, int, int,
-                          SAParams, int*, int*);
+                          SAParams, int*, int*, int*, int8_t*);
 
 // The instantiation for a launch class whose widest bucket is d2max.
+template <bool SPLIT>
 KernelFn kernel_for(int d2max, int n1r) {
-  if (d2max <= 32) return n1r <= 32 ? sa_plan_kernel<1, 1> : sa_plan_kernel<1, 4>;
-  return n1r <= 32 ? sa_plan_kernel<4, 1> : sa_plan_kernel<4, 4>;
+  if (d2max <= 32)
+    return n1r <= 32 ? sa_plan_kernel<1, 1, SPLIT>
+                     : sa_plan_kernel<1, 4, SPLIT>;
+  return n1r <= 32 ? sa_plan_kernel<4, 1, SPLIT>
+                   : sa_plan_kernel<4, 4, SPLIT>;
 }
 
-const KernelFn ALL_KERNELS[] = {sa_plan_kernel<1, 1>, sa_plan_kernel<1, 4>,
-                                sa_plan_kernel<4, 1>, sa_plan_kernel<4, 4>};
+KernelFn kernel_for(int d2max, int n1r, bool split) {
+  return split ? kernel_for<true>(d2max, n1r) : kernel_for<false>(d2max, n1r);
+}
+
+const KernelFn ALL_KERNELS[] = {
+    sa_plan_kernel<1, 1, false>, sa_plan_kernel<1, 4, false>,
+    sa_plan_kernel<4, 1, false>, sa_plan_kernel<4, 4, false>,
+    sa_plan_kernel<1, 1, true>,  sa_plan_kernel<1, 4, true>,
+    sa_plan_kernel<4, 1, true>,  sa_plan_kernel<4, 4, true>};
 
 }  // namespace
 
@@ -539,10 +648,11 @@ int sa_search_prepare(int device_max_smem) {
 // CTAs of c_par threads per SM for a launch class whose widest bucket is
 // d2max (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into *blocks,
 // and the kernel's registers per thread and local (spill) bytes into
-// *regs and *local.  Returns the cudaError_t.
-int sa_search_occupancy(int d2max, int n1r, int c_par, int lsoln,
+// *regs and *local, for the unsplit instantiation or (split != 0) the
+// split one.  Returns the cudaError_t.
+int sa_search_occupancy(int d2max, int n1r, int c_par, int lsoln, int split,
                         int* blocks, int* regs, int* local) {
-  const KernelFn fn = kernel_for(d2max, n1r);
+  const KernelFn fn = kernel_for(d2max, n1r, split != 0);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -553,31 +663,42 @@ int sa_search_occupancy(int d2max, int n1r, int c_par, int lsoln,
 }
 
 // Launches one launch class of a plan on `stream`: grid (the buckets'
-// entries, K), c_par threads, shared memory for the widest bucket
-// d2max.  Returns the cudaError_t of the launch (0 = success).
+// entries, K, splits), c_par threads, shared memory for the widest
+// bucket d2max; with splits > 1 (a power of two dividing r_seq) the
+// split instantiation, then sa_split_reduce on the same stream.
+// Returns the cudaError_t of the launches (0 = success).
 // sa_search_prepare must have run on the device first.  `uniforms`
 // (supplied stream) or `tags` (in-kernel threefry from seed, tags and
 // the buckets' file-order indices): exactly one is non-null.  Scores go
 // to out_scores[q * ecols + column], maps (may be null when lsoln == 0)
-// to out_maps[(q * ecols + column) * n1r + i].
+// to out_maps[(q * ecols + column) * n1r + i].  A split launch's
+// scratch: `part` int32[K * entries * splits * 2] and, under lsoln,
+// `part_maps` int8[K * entries * splits * n1r] (both null unsplit).
 int sa_search_launch(const PlanDesc* plan, int d2max, const int8_t* qtypes,
                      const uint8_t* qtab, const float* qdmat, const int* n1s,
                      int K, int n1r, uint32_t seed, const int* tags,
                      const float* uniforms, int ecols, int c_par, int r_seq,
                      int lorder, int lsoln, int maxiter, float temp0,
                      float alpha, float mxssed, float init_matchprob,
-                     float eps, int maxscore_init, int* out_scores,
-                     int* out_maps, void* stream) {
+                     float eps, int maxscore_init, int splits, int* part,
+                     int8_t* part_maps, int* out_scores, int* out_maps,
+                     void* stream) {
   const SAParams p{maxiter, temp0, alpha, mxssed, init_matchprob, eps,
                    maxscore_init};
   int nblocks = 0;
   for (int i = 0; i < plan->nb; ++i) nblocks += plan->b[i].E;
   const size_t smem = sa_search_smem_bytes(n1r, d2max, c_par, lsoln);
-  const dim3 grid(static_cast<unsigned>(nblocks), static_cast<unsigned>(K));
-  kernel_for(d2max, n1r)<<<grid, c_par, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(static_cast<unsigned>(nblocks), static_cast<unsigned>(K),
+                  static_cast<unsigned>(splits));
+  kernel_for(d2max, n1r, splits > 1)<<<grid, c_par, smem, st>>>(
       *plan, qtypes, qtab, qdmat, n1s, n1r, seed, tags, uniforms, ecols,
-      r_seq, lorder, lsoln, p, out_scores, out_maps);
+      r_seq, lorder, lsoln, p, out_scores, out_maps, part, part_maps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits <= 1) return static_cast<int>(err);
+  sa_split_reduce<<<dim3(grid.x, grid.y), 32, 0, st>>>(
+      *plan, ecols, n1r, splits, part, lsoln ? part_maps : nullptr,
+      out_scores, lsoln ? out_maps : nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

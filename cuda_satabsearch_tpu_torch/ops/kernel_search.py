@@ -13,8 +13,10 @@ round8 group run against a shard in tiles of at most ``K_TILE`` queries
 power-of-two tail tiles, which exist for the TPU's compiles), each tile
 in at most two kernel launches, one per launch class (the narrow
 buckets, d2 <= 32, and the wide ones), each writing its columns of one
-int32[K, E_shard] output; scores and maps come back as int32.  As the
-JAX package's dispatch / assemble pair is split, ``launch_group``
+int32[K, E_shard] output, its chains' restarts split over several CTAs
+where the launch would fill few waves of the card
+(ops/sa_kernel.restart_split); scores and maps come back as int32.  As
+the JAX package's dispatch / assemble pair is split, ``launch_group``
 launches a group and ``drain`` brings any number of launched groups
 back, so that a stream of groups is launched whole before its one
 drain.  ``QueryGraphs`` runs one query against one shard, from its
@@ -32,12 +34,11 @@ import torch
 from .. import trace
 from ..core.constants import DEFAULTS, SAParams
 from ..parallel.distributed import to_host
-from . import sa_kernel
 from .common import pack_tab, prepare_query, round8
 from .engine import search_plan_plain
 from .rng import M32
-from .sa_kernel import (MAX_BUCKETS, descriptor, device_guard, sa_search,
-                        upload_tags)
+from .sa_kernel import (MAX_BUCKETS, class_slots, descriptor, device_guard,
+                        restart_split, sa_search, upload_tags)
 
 NARROW_MAX = 32  # widest bucket of the narrow launch class
 # queries of one launch: the JAX package's K_TILE (ops/pallas_search.py
@@ -65,8 +66,15 @@ class LaunchClass:
     buckets: list  # [(DeviceBucket, first output column)]
     d2max: int  # the widest bucket: sizes the launch's shared memory
     desc: object  # the kernel's descriptor (ops/sa_kernel.descriptor)
-    # (n1r, c_par, lsoln) -> CTA slots of one launch (``class_slots``)
+    # (n1r, c_par, lsoln) -> CTA slots of one launch
+    # (ops/sa_kernel.class_slots)
     slots: dict = field(default_factory=dict)
+
+    @property
+    def entries(self) -> int:
+        """Rows of the class's buckets, padding included: its CTAs per
+        query and restart split (ops/sa_kernel.restart_split)."""
+        return sum(len(b.index) for b, _ in self.buckets)
 
 
 @dataclass
@@ -147,35 +155,21 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def class_slots(plan: Plan, cls: LaunchClass, n1r: int, c_par: int,
-                lsoln: bool) -> int:
-    """CTAs of one launch of ``cls`` that the card holds at once: its SMs
-    times the CTAs of the class's kernel resident on one SM
-    (ops/sa_kernel.occupancy), taken once per class and (n1r, c_par,
-    lsoln), after the class's first launch; 0 off a card."""
-    key = (n1r, c_par, lsoln)
-    if key not in cls.slots:
-        slots = 0
-        if plan.sms:
-            with device_guard(plan.device):
-                slots = plan.sms * sa_kernel.occupancy(cls.d2max, n1r,
-                                                       c_par, lsoln)[0]
-        cls.slots[key] = slots
-    return cls.slots[key]
-
-
 def launch_figures(plan: Plan, K: int, n1r: int, *, c_par: int, r_seq: int,
                    lsoln: bool, maxiter: int) -> tuple[int, int, int]:
     """(ctas, cta_slots, chain_moves) of the SA launches that K queries
-    padded to n1r make against ``plan`` (one per launch class; the plain
-    engine runs the same plan): the CTAs of their grids, one per
-    (column, query); their CTA slots (``class_slots``), summed; and the
-    dependent moves of one chain, maxiter x r_seq, the same in every
-    launch.  The figures of a ``kernel_search.enqueue`` span."""
-    return (K * plan.nentries,
+    padded to n1r make against ``plan`` (one per launch class, each
+    split S ways by ops/sa_kernel.restart_split; the plain engine runs
+    the same plan unsplit): the CTAs of their grids, one per (column,
+    query, split); their CTA slots (``class_slots``), summed; and the
+    dependent moves of a chain in one CTA, maxiter x r_seq / S, the same
+    in every launch.  The figures of a ``kernel_search.enqueue`` span."""
+    split = restart_split(plan, K, n1r, c_par=c_par, r_seq=r_seq,
+                          lsoln=lsoln)
+    return (K * plan.nentries * split,
             sum(class_slots(plan, cls, n1r, c_par, lsoln)
                 for cls in plan.classes),
-            maxiter * r_seq)
+            maxiter * r_seq // split)
 
 
 def query_layout(K: int, n1r: int):
@@ -372,6 +366,7 @@ class _Graph:
 
     replay: object
     launches: int  # SA kernel launches of one replay
+    split_launches: int  # those of them that split their restarts
     figures: tuple  # launch_figures of one replay
     staging: torch.Tensor  # uint8: the query in query_layout(1, n1r), the tag
     parts: list  # numpy views of the query's parts in ``staging``
@@ -447,9 +442,11 @@ class QueryGraphs:
                 maps.copy_(m.index_select(1, self.inverse),
                            non_blocking=True)
 
-        before = sa_search.launches
+        before = sa_search.launches, sa_search.split_launches
         replay = self.capture(run)
-        launches, sa_search.launches = sa_search.launches - before, before
+        launches = sa_search.launches - before[0]
+        split_launches = sa_search.split_launches - before[1]
+        sa_search.launches, sa_search.split_launches = before
         graph_captures += 1
         kw = self.search_kw
         figures = launch_figures(self.plan, 1, n1r, c_par=kw["c_par"],
@@ -457,7 +454,8 @@ class QueryGraphs:
                                  maxiter=kw["params"].maxiter)
         host = staging.numpy()
         self.graphs[key] = _Graph(
-            replay, launches, figures, staging, query_parts(host, 1, n1r),
+            replay, launches, split_launches, figures, staging,
+            query_parts(host, 1, n1r),
             host[size:].view(np.uint32), dev, scores, maps)
 
     def search(self, query, tag: int, *, lorder: bool, lsoln: bool):
@@ -485,6 +483,7 @@ class QueryGraphs:
                 trace.end(esp, 0, g.figures)
             graph_replays += 1
             sa_search.launches += g.launches
+            sa_search.split_launches += g.split_launches
         finally:
             trace.end(sp)
         sp = trace.begin("kernel_search.drain")

@@ -18,8 +18,12 @@ first search; otherwise the first launch on a device does).
 classes).  A plan on the CPU goes to the plain version
 (ops/engine.search_plan_plain); on a CUDA device each launch class is
 one kernel launch, the wide class on a side stream forked from the
-current one and joined back by an event, or the call raises.
-``sa_search.launches`` counts kernel launches.
+current one and joined back by an event, or the call raises.  Where
+the launches would fill few waves of the card's CTA slots, each class
+splits its chains' restarts over several CTAs (``restart_split``), and
+a small reduction kernel after it makes each entry's result.
+``sa_search.launches`` counts SA kernel launches,
+``sa_search.split_launches`` those of them that split.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import shutil
 import subprocess
 import time
 from dataclasses import dataclass, field
+from fractions import Fraction
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +55,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_BUCKETS = 8  # buckets of one launch (csrc/sa_search.cu MAX_BUCKETS)
 MAX_K = 65535  # queries of one launch: the grid's y extent
+# waves of the card's CTA slots that a restart split fills at least
+# (``restart_split``): a launch's tail, about one CTA's time, is then a
+# few per cent of it (H100 timings by split and query count: PERF.md)
+SPLIT_WAVES = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -126,13 +135,14 @@ def load_library() -> Library:
         ctypes.c_uint32, P, P, I,  # seed, tags, uniforms, ecols
         I, I, I, I,  # c_par, r_seq, lorder, lsoln
         I, F, F, F, F, F, I,  # SAParams
+        I, P, P,  # splits, part, part_maps
         P, P, P]  # out_scores, out_maps, stream
     lib.sa_search_launch.restype = I
     lib.sa_search_prepare.argtypes = [I]  # device_max_smem
     lib.sa_search_prepare.restype = I
     lib.sa_search_smem_bytes.argtypes = [I, I, I, I]
     lib.sa_search_smem_bytes.restype = ctypes.c_size_t
-    lib.sa_search_occupancy.argtypes = [I, I, I, I, P, P, P]
+    lib.sa_search_occupancy.argtypes = [I, I, I, I, I, P, P, P]
     lib.sa_search_occupancy.restype = I
     lib.sa_search_error_string.argtypes = [I]
     lib.sa_search_error_string.restype = ctypes.c_char_p
@@ -172,17 +182,59 @@ def prepare(dev: torch.device) -> int:
     return library.smem_limit[idx]
 
 
-def occupancy(d2max: int, n1r: int, c_par: int, lsoln: bool
-              ) -> tuple[int, int, int]:
+def occupancy(d2max: int, n1r: int, c_par: int, lsoln: bool,
+              split: bool = False) -> tuple[int, int, int]:
     """(CTAs per SM, registers per thread, local bytes per thread) of the
     kernel instantiation that runs a launch class whose widest bucket is
-    ``d2max`` (on the current device, after ``prepare``)."""
+    ``d2max``, unsplit or (``split``) split (on the current device, after
+    ``prepare``)."""
     out = [ctypes.c_int() for _ in range(3)]
     err = load_library().lib.sa_search_occupancy(
-        d2max, n1r, c_par, int(lsoln), *(ctypes.byref(o) for o in out))
+        d2max, n1r, c_par, int(lsoln), int(split),
+        *(ctypes.byref(o) for o in out))
     if err != 0:
         raise cuda_error("SA kernel occupancy query", err)
     return tuple(o.value for o in out)
+
+
+def class_slots(plan, cls, n1r: int, c_par: int, lsoln: bool) -> int:
+    """CTAs of one launch of ``cls`` (a launch class of ``plan``,
+    ops/kernel_search.make_plan) that the card holds at once: its SMs
+    times the CTAs of the class's unsplit kernel resident on one SM
+    (``occupancy``), taken once per class and (n1r, c_par, lsoln); 0 off
+    a card."""
+    key = (n1r, c_par, lsoln)
+    if key not in cls.slots:
+        slots = 0
+        if plan.sms:
+            with device_guard(plan.device):
+                slots = plan.sms * occupancy(cls.d2max, n1r, c_par,
+                                             lsoln)[0]
+        cls.slots[key] = slots
+    return cls.slots[key]
+
+
+def restart_split(plan, K: int, n1r: int, *, c_par: int, r_seq: int,
+                  lsoln: bool) -> int:
+    """The restart split S of K queries padded to n1r against ``plan``:
+    each launch class runs every (entry, query) as S CTAs of r_seq / S
+    restarts.  The least power of two that divides r_seq at which the
+    launches fill at least ``SPLIT_WAVES`` waves of the card (the
+    classes' K * entries * S / ``class_slots`` summed), or the largest
+    one short of that.  1 where r_seq is odd (before any occupancy
+    query) or off a card."""
+    if r_seq % 2 or not plan.sms:
+        return 1
+    slots = [class_slots(plan, cls, n1r, c_par, lsoln)
+             for cls in plan.classes]
+    if not all(slots):
+        return 1
+    waves = sum(Fraction(K * cls.entries, m)
+                for cls, m in zip(plan.classes, slots))
+    split = 1
+    while r_seq % (2 * split) == 0 and waves * split < SPLIT_WAVES:
+        split *= 2
+    return split
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,9 +290,11 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
     int32[K] from ``upload_tags``) and each entry's file-order index, or
     read from ``uniforms`` f32[K, E, r_seq, P, c_par].  On the CPU the
     plain version runs; on a CUDA device one kernel launch per launch
-    class (at most two) is made.  Returns (scores int32[K, E], maps
-    int32[K, E, n1r] or None), E = plan.nentries in the plan's order.
-    ``seed`` must lie in [-2**31, 2**31) (ops/rng.check_seed)."""
+    class (at most two) is made, split as ``restart_split`` says (a
+    split launch is followed by its reduction kernel; the results are
+    bitwise those of the unsplit launch).  Returns (scores int32[K, E],
+    maps int32[K, E, n1r] or None), E = plan.nentries in the plan's
+    order.  ``seed`` must lie in [-2**31, 2**31) (ops/rng.check_seed)."""
     seed = check_seed(seed)
     dev = plan.device
     if dev.type == "cpu":
@@ -290,29 +344,45 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
             tags.data_ptr() if uniforms is None else None,
             uniforms.data_ptr() if uniforms is not None else None, E,
             c_par, r_seq, int(lorder), int(lsoln), p.maxiter, p.temp0,
-            p.alpha, p.mxssed, p.init_matchprob, p.eps, p.maxscore_init,
-            scores.data_ptr(), maps.data_ptr() if maps is not None else None)
+            p.alpha, p.mxssed, p.init_matchprob, p.eps, p.maxscore_init)
+    outs = (scores.data_ptr(), maps.data_ptr() if maps is not None else None)
+    split = restart_split(plan, K, n1r, c_par=c_par, r_seq=r_seq,
+                          lsoln=lsoln)
+    # a split launch's scratch (per split, its best score and winner,
+    # and under LSOLN the winner's map), made on the current stream,
+    # which waits for both classes before anything can reuse it
+    scratch = [(torch.empty(2 * K * cls.entries * split, dtype=torch.int32,
+                            device=dev),
+                torch.empty(K * cls.entries * split * n1r, dtype=torch.int8,
+                            device=dev) if lsoln else None)
+               if split > 1 else (None, None) for cls in plan.classes]
 
-    def launch(cls, stream):
-        err = lib.sa_search_launch(ctypes.byref(cls.desc), cls.d2max,
-                                   *args, stream.cuda_stream)
+    def launch(i, stream):
+        cls, (part, part_maps) = plan.classes[i], scratch[i]
+        err = lib.sa_search_launch(
+            ctypes.byref(cls.desc), cls.d2max, *args, split,
+            None if part is None else part.data_ptr(),
+            None if part_maps is None else part_maps.data_ptr(), *outs,
+            stream.cuda_stream)
         if err != 0:
             raise cuda_error("SA kernel launch", err)
         sa_search.launches += 1
+        sa_search.split_launches += split > 1
 
     with device_guard(dev):
         current = torch.cuda.current_stream(dev)
         if len(plan.classes) == 1:
-            launch(plan.classes[0], current)
+            launch(0, current)
         else:  # the wide class on the side stream: both classes together
             side, fork, join = launch_streams(current.device_index)
             fork.record(current)
             side.wait_event(fork)
-            launch(plan.classes[0], side)
-            launch(plan.classes[1], current)
+            launch(0, side)
+            launch(1, current)
             join.record(side)
             current.wait_event(join)
     return scores, maps
 
 
 sa_search.launches = 0
+sa_search.split_launches = 0

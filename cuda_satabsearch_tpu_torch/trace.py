@@ -23,7 +23,8 @@ scores and maps that the drain brought to the host.  Each
 made (ops/kernel_search.launch_figures): ``ctas``, the CTAs of their
 grids; ``cta_slots``, for each launch the card's SMs times the CTAs of
 its launch class resident on one SM, summed (0 off a card); and
-``chain_moves``, maxiter x r_seq, the dependent moves of one chain.
+``chain_moves``, maxiter x r_seq / S, the dependent moves of a chain in
+one CTA (S the launches' restart split, ops/sa_kernel.restart_split).
 
     sp = trace.begin("session.search", tag, nqueries)
     try:
@@ -62,7 +63,7 @@ class Span(NamedTuple):
     # the SA launches of a kernel_search.enqueue span; else 0
     ctas: int = 0  # CTAs in their grids
     cta_slots: int = 0  # SMs x resident CTAs per SM of each, summed
-    chain_moves: int = 0  # maxiter x r_seq: one chain's dependent moves
+    chain_moves: int = 0  # maxiter x r_seq / S: a chain's moves in one CTA
 
 
 class _Recorder:

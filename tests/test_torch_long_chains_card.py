@@ -7,10 +7,12 @@ off (LORDER on, as the acceptance deployment searches): the key's first
 search (eager), its second (eager, then the capture) and its third and
 fourth (replays) equal, bit for bit, a session that searches eagerly
 only.  Each replay's enqueue span carries its captured launches'
-figures: CTAs one per (column, query) of the plan, CTA slots the card's
-SMs times each launch class's resident CTAs per SM
-(``sa_kernel.occupancy``), and a chain of maxiter x 32 moves; the
-figures and the share of the card they fill are printed (``-s``).  On
+figures: CTAs one per (column, query, restart split) of the plan, CTA
+slots the card's SMs times each launch class's resident CTAs per SM
+(``sa_kernel.occupancy``), and a chain of maxiter x 32 / S moves, S
+the launches' split (``sa_kernel.restart_split``: one query fills
+under half a wave of the card, so S is 32); the figures and the share
+of the card they fill are printed (``-s``).  On
 the card's host, which has no JAX (that ``tests/conftest.py`` imports):
 
     python3 -m pytest --noconftest -m card -s tests/test_torch_long_chains_card.py
@@ -69,11 +71,14 @@ def test_long_chain_graphs_equal_eager_and_carry_the_figures(card):
         assert len(spans) == 4
         per_sm = [sa_kernel.occupancy(cls.d2max, width, 128, False)[0]
                   for cls in plan.classes]
-        want = (plan.nentries, sms * sum(per_sm), 100 * 32)
+        split = sa_kernel.restart_split(plan, 1, width, c_par=128, r_seq=32,
+                                        lsoln=False)
+        assert split == 32
+        want = (plan.nentries * split, sms * sum(per_sm), 100 * 32 // split)
         for s in spans:  # eager and replayed alike
             assert (s.ctas, s.cta_slots, s.chain_moves) == want
-        print(f"\n{card}: n1r {width:3d}: {want[0]} CTAs, {want[1]} slots "
-              f"({sms} SMs x {per_sm} per SM, wide and narrow class), "
-              f"fill {100 * min(1, want[0] / want[1]):.1f} %, "
+        print(f"\n{card}: n1r {width:3d}: {want[0]} CTAs ({split} splits), "
+              f"{want[1]} slots ({sms} SMs x {per_sm} per SM, wide and "
+              f"narrow class), fill {100 * min(1, want[0] / want[1]):.1f} %, "
               f"{want[2]} moves a chain", end="")
     assert kernel_search.graph_replays - replays == 2 * len(firsts)

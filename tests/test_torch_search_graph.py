@@ -238,7 +238,7 @@ def test_counters_count_captures_replays_and_launches(dbfile, monkeypatch):
         capturing.pop()
         return fn
 
-    counted.launches = 0
+    counted.launches = counted.split_launches = 0
     monkeypatch.setattr(kernel_search, "sa_search", counted)
     sess = session(dbfile)
     attach(sess, capture)
@@ -254,6 +254,7 @@ def test_counters_count_captures_replays_and_launches(dbfile, monkeypatch):
     assert kernel_search.graph_captures - captures == 1
     assert kernel_search.graph_replays - replays == len(names) - 4
     assert counted.launches == per * (len(names) - 4)
+    assert counted.split_launches == 0  # r_seq 1: nothing to split
 
 
 def test_distances_off_the_bf16_grid_are_refused_on_the_graph_path(dbfile):
