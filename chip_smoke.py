@@ -580,9 +580,9 @@ def schedules(sess):
 def time_schedules(name, sess, query, card):
     """Kernel time (CUDA events), search wall and device idle share of
     both schedules, in turns (per bucket, full, full, per bucket)."""
-    from cuda_satabsearch_tpu_torch.ops.kernel_search import (
-        drain, launch_group, pack_queries)
+    from cuda_satabsearch_tpu_torch.ops.kernel_search import pack_queries
     from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
+    from cuda_satabsearch_tpu_torch.ops.search import search_db_many
 
     dev = sess.device
     q = pack_queries([query], 8, dev)
@@ -598,9 +598,8 @@ def time_schedules(name, sess, query, card):
                 sa_search(*q, plan, **kw)
 
         def search():
-            drain([launch_group([query], plans, lorder=True, lsoln=False,
-                                seed=1234, query_tags=[0], c_par=128,
-                                r_seq=1, backend="cuda")], sess.nentries)
+            search_db_many([query], sess.db, plans, query_tags=[0],
+                           maxstart=128, lorder=True, lsoln=False, seed=1234)
 
         ms = cuda_ms(kernels, 20)
         search()
@@ -1442,29 +1441,30 @@ def phase12d(dev, out, card):
     """The CLI on multiquery.input in this process: output == the JAX
     package's committed XLA-engine output (header aside), 6 SA launches
     and one drain after all of them."""
-    from cuda_satabsearch_tpu_torch import cli, session
+    from cuda_satabsearch_tpu_torch import cli
     from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
+    from cuda_satabsearch_tpu_torch.ops.search import Searcher
 
     with open(os.path.join(FIXTURES, "multiquery.input")) as fp:
         text = fp.read()
-    drains, drain_db_many = [], session.drain_db_many
+    drains, drain = [], Searcher.drain
 
-    def recorded(*a, **k):
+    def recorded(self, *a, **k):
         drains.append(sa_search.launches)
-        return drain_db_many(*a, **k)
+        return drain(self, *a, **k)
 
     stdout, stderr = io.StringIO(), io.StringIO()
     old_stdin, old_cwd = sys.stdin, os.getcwd()
     sa_search.launches = 0
     try:
-        session.drain_db_many = recorded
+        Searcher.drain = recorded
         sys.stdin = io.StringIO(text)
         os.chdir(FIXTURES)  # the input names its DB relative to it
         with contextlib.redirect_stdout(stdout), \
                 contextlib.redirect_stderr(stderr):
             rc = cli.main(["-r", "128"])
     finally:
-        session.drain_db_many = drain_db_many
+        Searcher.drain = drain
         sys.stdin = old_stdin
         os.chdir(old_cwd)
     launches = sa_search.launches

@@ -6,14 +6,13 @@ its one-op Pallas kernel :48-51), which ran once so that the first real
 search paid no first-use cost.  Here the same one-op kernel, o = x + 1
 on f32[8, 128] (csrc/warmup.cu, built into the library of
 ops/sa_kernel.py), is launched once when a search session starts; then
-the SA kernel's module is loaded and its shared-memory limit set
-(ops/sa_kernel.prepare), and then what a search touches around the
-kernel: the query pack and upload (ops/kernel_search.pack_queries,
-whose first call in a process is slower than the rest) and the tags'
-upload (ops/sa_kernel.upload_tags), the side stream and the fork and
-join events of a plan's two launch classes
-(ops/sa_kernel.launch_streams), and a drain.  The three times are
-reported on stderr.
+ops/warm.warm_search loads the SA kernel's module and sets its
+shared-memory limit, and brings up what a search touches around the
+kernel through the search's own code: the pinned staging of a query
+and its upload (whose first call in a process is slower than the
+rest), a plan's side stream with its fork and join, the gather into
+file order (whose kernel's first use loads its module), and a drain.
+The three times are reported on stderr.
 
 ``add_one`` runs the plain version (x + 1) on CPU tensors and launches
 the kernel on CUDA tensors, or raises.  ``add_one.launches`` counts
@@ -25,21 +24,12 @@ from __future__ import annotations
 import sys
 import time
 
-import numpy as np
 import torch
 
-from ..io.pack import PackedQuery
-from ..ops.kernel_search import pack_queries
-from ..ops.sa_kernel import (check_tensor, device_guard, launch_streams,
-                             load_library, prepare, upload_tags)
+from ..ops.sa_kernel import check_tensor, device_guard, load_library
+from ..ops.warm import warm_search
 
 SHAPE = (8, 128)  # the JAX package's warm-up block
-# a one-SSE query: what the launch path's query upload packs
-WARM_QUERY = PackedQuery(name="warm", order=1,
-                         tabhi=np.zeros((1, 1), np.int8),
-                         tablo=np.zeros((1, 1), np.int8),
-                         types=np.zeros(1, np.int8),
-                         dmat=np.zeros((1, 1), np.float32))
 
 
 def add_one(x: torch.Tensor) -> torch.Tensor:
@@ -70,10 +60,9 @@ add_one.launches = 0
 
 def warm_backend(device: torch.device, log: bool = True) -> float:
     """Bring up ``device`` for searching: launch the start-up kernel once
-    and check its result, prepare the SA kernel, and bring up the launch
-    path of a search (a query and a tags upload, the side stream, a fork
-    and a join, a drain).  Returns the wall seconds spent (0.0 on
-    the CPU, where there is nothing to bring up)."""
+    and check its result, then prepare the SA kernel and bring up a
+    search's launch path (ops/warm.warm_search).  Returns the wall
+    seconds spent (0.0 on the CPU, where there is nothing to bring up)."""
     if device.type == "cpu":
         return 0.0
     t0 = time.perf_counter()
@@ -82,22 +71,11 @@ def warm_backend(device: torch.device, log: bool = True) -> float:
     t1 = time.perf_counter()
     if not ok:
         raise RuntimeError("start-up kernel returned wrong values")
-    prepare(device)
+    prepare_s, launch_s = warm_search(device)
     t2 = time.perf_counter()
-    pack_queries([WARM_QUERY], 8, device)
-    tags = upload_tags([0], device)
-    with device_guard(device):
-        current = torch.cuda.current_stream(device)
-        side, fork, join = launch_streams(current.device_index)
-        fork.record(current)
-        side.wait_event(fork)
-        join.record(side)
-        current.wait_event(join)
-    tags.cpu()  # the stream's last copy: both uploads are done
-    t3 = time.perf_counter()
     if log:
         print(f"# start-up on {device}: CUDA context and kernel library "
               f"{(t1 - t0) * 1e3:.1f} ms, SA module prepare "
-              f"{(t2 - t1) * 1e3:.1f} ms, launch path "
-              f"{(t3 - t2) * 1e3:.1f} ms", file=sys.stderr)
-    return t3 - t0
+              f"{prepare_s * 1e3:.1f} ms, launch path "
+              f"{launch_s * 1e3:.1f} ms", file=sys.stderr)
+    return t2 - t0

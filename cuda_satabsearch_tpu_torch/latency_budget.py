@@ -5,16 +5,16 @@ Counterpart of the JAX package's ``scripts/latency_budget.py``.  Runs
 ``SearchSession.search`` and the ``score_stats`` of its scores, as the
 CLI does, inside ``trace.recording()``.  Prints, per span of the search
 path that a query records (``trace.SPANS``, in that order), the median
-over the queries of its self time: its duration less its children's.  ``session.search``'s own is the glue
-between launch and drain and the building of the result;
-``kernel_search.launch_group``'s the query pack and upload and the tags
-upload; ``kernel_search.enqueue`` the launches; ``kernel_search.drain``
-the wait for the device, the copies and the scatter to file order.  On a
-card the queries after the first two replay a CUDA graph
-(ops/kernel_search.QueryGraphs): there ``launch_group``'s own is the
-query's staging, ``enqueue`` the replay and ``drain`` the wait and the
-copy out of pinned memory.  The last line is the median of the whole
-query.
+over the queries of its self time: its duration less its children's.
+``session.search``'s own is the glue between launch and drain and the
+building of the result; ``kernel_search.launch_group``'s the staging of
+the query and its tag and the step's upload, gather and copy-out
+(ops/kernel_search.Step); ``kernel_search.enqueue`` the launches;
+``kernel_search.drain`` the wait for the device and the copy of the
+query's results into arrays of their own.  On a card the queries after
+the first two replay a CUDA graph of the same step: there
+``launch_group``'s own is the staging and ``enqueue`` the replay.  The
+last line is the median of the whole query.
 
     python -m cuda_satabsearch_tpu_torch.latency_budget [--restarts 128]
         [--reps 7] [--lsoln] [-c]

@@ -1,5 +1,5 @@
-"""Bucket dispatch: resident bucket tensors, a launch plan per shard,
-results scattered back to file order.
+"""Bucket dispatch: resident bucket tensors, a launch plan per shard, and
+the search step of one round8 group against one shard.
 
 Counterpart of cuda_satabsearch_tpu/ops/pallas_search.py
 (``prepare_bucket_pallas2`` :137-194, ``dispatch_db_pallas2[_multi]`` /
@@ -7,24 +7,24 @@ Counterpart of cuda_satabsearch_tpu/ops/pallas_search.py
 plan, entry groups, query scatters and packed int8 drains: each bucket
 is uploaded once as plain tensors (whole, or as shards over a mesh of
 devices, parallel/mesh.py), with its entries' file-order indices, and
-each shard gets a launch plan (``make_plan``).  The K queries of one
-round8 group run against a shard in tiles of at most ``K_TILE`` queries
-(as the JAX package tiles K, ops/pallas_search.py:497-520, without its
-power-of-two tail tiles, which exist for the TPU's compiles), each tile
-in at most two kernel launches, one per launch class (the narrow
-buckets, d2 <= 32, and the wide ones), each writing its columns of one
-int32[K, E_shard] output, its chains' restarts split over several CTAs
-where the launch would fill few waves of the card
-(ops/sa_kernel.restart_split); scores and maps come back as int32.  As
-the JAX package's dispatch / assemble pair is split, ``launch_group``
-launches a group and ``drain`` brings any number of launched groups
-back, so that a stream of groups is launched whole before its one
-drain.  ``QueryGraphs`` runs one query against one shard, from its
-staging to its drain, as a CUDA graph replayed per query width.
+each shard gets a launch plan (``make_plan``).  A ``Step`` runs the K
+queries of one round8 group against a plan in tiles of at most
+``K_TILE`` queries (as the JAX package tiles K,
+ops/pallas_search.py:497-520, without its power-of-two tail tiles,
+which exist for the TPU's compiles), each tile in at most two kernel
+launches, one per launch class (the narrow buckets, d2 <= 32, and the
+wide ones), its chains' restarts split over several CTAs where the
+launch would fill few waves of the card (ops/sa_kernel.restart_split),
+and gathers the outputs into file order on the device.  Nothing waits
+until ``Step.results``, so that a stream of groups is launched whole
+before its one drain (ops/search.py).  A CUDA graph is a captured
+``Step.launch``, replayed in its place.
 """
 
 from __future__ import annotations
 
+import functools
+import gc
 import math
 from dataclasses import dataclass, field
 
@@ -32,13 +32,12 @@ import numpy as np
 import torch
 
 from .. import trace
-from ..core.constants import DEFAULTS, SAParams
 from ..parallel.distributed import to_host
-from .common import pack_tab, prepare_query, round8
+from .common import pack_tab, prepare_query
 from .engine import search_plan_plain
 from .rng import M32
 from .sa_kernel import (MAX_BUCKETS, class_slots, descriptor, device_guard,
-                        restart_split, sa_search, upload_tags)
+                        restart_split, sa_search)
 
 NARROW_MAX = 32  # widest bucket of the narrow launch class
 # queries of one launch: the JAX package's K_TILE (ops/pallas_search.py
@@ -80,13 +79,20 @@ class LaunchClass:
 @dataclass
 class Plan:
     """A shard's launch plan: its buckets, the file-order index of each
-    output column, and at most two launch classes, the wide one first."""
+    output column, at most two launch classes, the wide one first, and
+    the order that puts the columns in file order."""
 
     device: torch.device
     buckets: list[DeviceBucket]  # output order
     index: np.ndarray  # int32 [E]: concatenated bucket indices
     classes: list[LaunchClass]
     sms: int  # the device's SMs; 0 off a card
+    # the columns a step gathers, by file index with padding last (every
+    # rank's shard keeps its width), or a whole DB's without padding:
+    # int64 [W] on the device, and the file index of each, int32 [W]
+    order: torch.Tensor
+    file_index: np.ndarray
+    whole: bool  # file_index is 0 .. nentries - 1 of the DB (make_plan)
 
     @property
     def nentries(self) -> int:
@@ -121,11 +127,15 @@ def prepare_bucket(bucket, device, rows: slice = slice(None)
         index_dev=put(index))
 
 
-def make_plan(buckets: list[DeviceBucket], device=None) -> Plan:
+def make_plan(buckets: list[DeviceBucket], device=None,
+              nentries: int | None = None) -> Plan:
     """The launch plan of ``buckets`` (any subset of a shard's buckets,
     on one device; outputs in the given order): buckets of d2 <=
     NARROW_MAX form the narrow launch class, the others the wide one,
     each ordered widest first so that the longest chains start first.
+    ``nentries``: the buckets are a whole DB of that many entries, which
+    the plan must hold each exactly once (padding aside), or ValueError;
+    its steps' results are then in the DB's file order as they stand.
     ``device`` is needed only for a plan without buckets."""
     buckets = [b for b in buckets if len(b.index)]
     device = buckets[0].types.device if buckets else torch.device(device)
@@ -144,8 +154,16 @@ def make_plan(buckets: list[DeviceBucket], device=None) -> Plan:
                                        desc=descriptor(members)))
     index = (np.concatenate([b.index for b in buckets]) if buckets
              else np.zeros(0, np.int32))
+    cols = np.argsort(np.where(index < 0, np.iinfo(np.int32).max, index),
+                      kind="stable")
+    if nentries is not None:
+        cols = cols[:nentries]
+        if not np.array_equal(index[cols], np.arange(nentries)):
+            raise ValueError("the plan does not hold every entry exactly "
+                             "once")
     return Plan(device=device, buckets=buckets, index=index, classes=classes,
-                sms=sm_count(device))
+                sms=sm_count(device), order=torch.from_numpy(cols).to(device),
+                file_index=index[cols], whole=nentries is not None)
 
 
 def sm_count(device: torch.device) -> int:
@@ -173,13 +191,16 @@ def launch_figures(plan: Plan, K: int, n1r: int, *, c_par: int, r_seq: int,
 
 
 def query_layout(K: int, n1r: int):
-    """Where K queries padded to n1r lie in one byte buffer, as the kernel
-    reads them: [(dtype, shape, offset, bytes)] of qtypes int8[K, n1r],
-    qtab uint8[K, n1r, n1r], qdmat f32[K, n1r, n1r] and n1s int32[K],
-    each 256-byte aligned, and the buffer's size in bytes."""
+    """Where K queries padded to n1r and their tags lie in one byte
+    buffer, as the kernel reads them: [(dtype, shape, offset, bytes)] of
+    qtypes int8[K, n1r], qtab uint8[K, n1r, n1r], qdmat f32[K, n1r, n1r],
+    n1s int32[K] and tags int32[K] (the uint32 value tag & 0xffffffff,
+    as ops/sa_kernel.upload_tags makes them), each 256-byte aligned, and
+    the buffer's size in bytes."""
     layout, at = [], 0
     for dtype, shape in ((np.int8, (K, n1r)), (np.uint8, (K, n1r, n1r)),
-                         (np.float32, (K, n1r, n1r)), (np.int32, (K,))):
+                         (np.float32, (K, n1r, n1r)), (np.int32, (K,)),
+                         (np.int32, (K,))):
         nbytes = np.dtype(dtype).itemsize * math.prod(shape)
         layout.append((dtype, shape, at, nbytes))
         at += -(-nbytes // 256) * 256
@@ -191,34 +212,47 @@ _TORCH_DTYPE = {np.int8: torch.int8, np.uint8: torch.uint8,
 
 
 def query_parts(buf, K: int, n1r: int) -> list:
-    """The four parts of ``query_layout(K, n1r)`` as views of ``buf``, a
+    """The five parts of ``query_layout(K, n1r)`` as views of ``buf``, a
     uint8 numpy array or tensor."""
     tensor = torch.is_tensor(buf)
     return [buf[o:o + n].view(_TORCH_DTYPE[d] if tensor else d).reshape(s)
             for d, s, o, n in query_layout(K, n1r)[0]]
 
 
-def stage_queries(queries, views) -> None:
-    """Write K queries, padded to n1r, into ``views``: the four parts of
-    ``query_layout(K, n1r)`` in a numpy buffer whose gaps are zero
-    (``query_parts``).  Distances off the bf16 grid raise ValueError."""
-    n1r = views[0].shape[1]
+class Staging:
+    """A zeroed host buffer ``buf`` of ``query_layout(K, n1r)``, in pinned
+    memory where ``pin`` (PyTorch's caching host allocator serves it), so
+    that its upload need not wait for the device, and numpy views of its
+    parts, which ``stage`` writes."""
+
+    def __init__(self, K: int, n1r: int, pin: bool):
+        self.buf = torch.zeros(query_layout(K, n1r)[1], dtype=torch.uint8,
+                               pin_memory=pin)
+        self.parts = query_parts(self.buf.numpy(), K, n1r)
+
+
+def stage(staging: Staging, queries, tags) -> None:
+    """Write K queries and their tags into ``staging`` (its gaps stay
+    zero).  Distances off the bf16 grid raise ValueError."""
+    parts = staging.parts
+    n1r = parts[0].shape[1]
     for k, q in enumerate(queries):
-        views[0][k], views[1][k], views[2][k] = prepare_query(q, n1r)
-        views[3][k] = q.order
-    if not on_bf16_grid(views[2]):
+        parts[0][k], parts[1][k], parts[2][k] = prepare_query(q, n1r)
+        parts[3][k] = q.order
+    if not on_bf16_grid(parts[2]):
         raise ValueError("query distances are not on the bf16 grid "
                          "(pack queries with io/pack.pack_query)")
+    parts[4].view(np.uint32)[:] = [t & M32 for t in tags]
 
 
 def pack_queries(queries, n1r: int, device):
     """(qtypes int8[K, n1r], qtab uint8[K, n1r, n1r], qdmat
-    f32[K, n1r, n1r], n1s int32[K]) for K queries padded to n1r, uploaded
-    in one copy (views of one byte buffer, ``query_layout``)."""
+    f32[K, n1r, n1r], n1s int32[K]) for K queries padded to n1r, staged
+    (``stage``, every tag 0) and uploaded in one copy."""
     K = len(queries)
-    buf = np.zeros(query_layout(K, n1r)[1], np.uint8)
-    stage_queries(queries, query_parts(buf, K, n1r))
-    return tuple(query_parts(torch.from_numpy(buf).to(device), K, n1r))
+    staging = Staging(K, n1r, pin=False)
+    stage(staging, queries, [0] * K)
+    return tuple(query_parts(staging.buf.to(device), K, n1r)[:4])
 
 
 def tiles(K: int) -> list[slice]:
@@ -227,274 +261,149 @@ def tiles(K: int) -> list[slice]:
     return [slice(k, min(k + K_TILE, K)) for k in range(0, K, K_TILE)]
 
 
-@dataclass
-class Launched:
-    """A round8 group launched on every shard and not drained yet."""
-
-    queries: list
-    n1r: int
-    lsoln: bool
-    # per shard: (device, file-order index int32[E], scores int32[K, E],
-    # maps int32[K, E, n1r] or None), the outputs still on the device
-    outputs: list
-
-
-def launch_group(queries, shards: list[Plan], *, lorder: bool, lsoln: bool,
-                 seed: int, query_tags, c_par: int, r_seq: int, backend: str,
-                 params: SAParams = DEFAULTS) -> Launched:
-    """Launch K queries of one round8 group against every shard's plan
-    (ops/search.upload_db), without waiting for any result.
-
-    ``backend`` "cuda" runs the kernel's wrapper (ops/sa_kernel.py, at
-    most two launches per shard and query tile), "torch" the plain
-    engine (ops/engine.py), on each shard's device and current stream.
-    The queries and their tags are uploaded once per shard; each tile
-    of ``tiles(K)`` is one call, and a group of more than one tile has
-    its tiles' outputs joined on the device.  Each query keeps its own
-    tag, so the results do not depend on the tiling."""
-    n1r = round8(max(q.order for q in queries))
-    if any(round8(q.order) != n1r for q in queries):
-        raise ValueError("queries of one call must share round8(order)")
-    fn = {"cuda": sa_search, "torch": search_plan_plain}[backend]
-    sp = trace.begin("kernel_search.launch_group", query_tags[0],
-                     len(queries))
-    try:
-        outputs = []
-        for plan in shards:
-            if not plan.nentries:  # an empty DB
-                continue
-            q = pack_queries(queries, n1r, plan.device)
-            tags = upload_tags(query_tags, plan.device)
-            parts = []
-            for t in tiles(len(queries)):
-                tsp = trace.begin("kernel_search.enqueue",
-                                  query_tags[t.start], t.stop - t.start)
-                figures = trace.NO_FIGURES
-                try:
-                    parts.append(fn(*(x[t] for x in q), plan, seed=seed,
-                                    tags=tags[t], c_par=c_par, r_seq=r_seq,
-                                    lorder=lorder, lsoln=lsoln,
-                                    params=params))
-                    if tsp is not None:
-                        figures = launch_figures(
-                            plan, t.stop - t.start, n1r, c_par=c_par,
-                            r_seq=r_seq, lsoln=lsoln, maxiter=params.maxiter)
-                finally:
-                    trace.end(tsp, 0, figures)
-            s, m = parts[0] if len(parts) == 1 else (
-                torch.cat([p[0] for p in parts]),
-                torch.cat([p[1] for p in parts]) if lsoln else None)
-            outputs.append((plan.device, plan.index, s, m))
-        return Launched(queries=list(queries), n1r=n1r, lsoln=lsoln,
-                        outputs=outputs)
-    finally:
-        trace.end(sp)
-
-
-def drain(launched: list[Launched], nentries: int, gather: bool = False):
-    """Bring the outputs of launched groups to the host, in launch order:
-    the stream's only wait for the device.  ``gather``: the shards of
-    the other ranks of a multi-process run are all-gathered
-    (parallel/distributed.to_host; every rank drains the same groups in
-    the same order, so the collectives match).  Returns, per group,
-    [(scores int32[nentries], maps int32[nentries, n1] or None)] in
-    query order, entries in database file order.  The bytes of scores
-    and maps brought to the host are recorded on the
-    ``kernel_search.drain`` span (trace.py)."""
-    sp = trace.begin("kernel_search.drain")
-    nbytes = 0
-    try:
-        out = []
-        for group in launched:
-            K, lsoln = len(group.queries), group.lsoln
-            scores = np.zeros((K, nentries), np.int32)
-            maps = (np.full((K, nentries, group.n1r), -1, np.int32) if lsoln
-                    else None)
-            for dev, index, s, m in group.outputs:  # one copy per output
-                if gather:
-                    index = to_host(torch.from_numpy(index).to(dev))
-                    s = to_host(s, dim=1)
-                    m = to_host(m, dim=1) if lsoln else None
-                else:
-                    s = s.cpu().numpy()
-                    m = m.cpu().numpy() if lsoln else None
-                nbytes += s.nbytes + (m.nbytes if lsoln else 0)
-                valid = index >= 0  # drop padding entries
-                scores[:, index[valid]] = s[:, valid]
-                if lsoln:
-                    maps[:, index[valid]] = m[:, valid]
-            out.append([(scores[k],
-                         None if maps is None else maps[k, :, :q.order])
-                        for k, q in enumerate(group.queries)])
-        return out
-    finally:
-        trace.end(sp, nbytes)
-
-
-# searches that QueryGraphs replayed, and the graphs it captured
-graph_replays = 0
-graph_captures = 0
-
-
-def file_order(index: np.ndarray, nentries: int) -> np.ndarray:
-    """The plan column of each entry in file order (int64 [nentries]):
-    the inverse of a one-shard plan's ``index``, its padding columns
-    (-1) dropped.  Raises ValueError unless the plan holds every entry
-    exactly once."""
-    cols = np.flatnonzero(index >= 0)
-    inverse = np.full(nentries, -1, np.int64)
-    inverse[index[cols]] = cols
-    if len(cols) != nentries or (inverse < 0).any():
-        raise ValueError("the plan does not hold every entry exactly once")
-    return inverse
-
-
 def capture_graph(fn):
     """Capture the device work of ``fn()`` as a CUDA graph; returns the
     graph's replay (the tensors ``fn`` allocates stay in the graph's
-    private memory pool)."""
+    private memory pool).  No garbage is collected while capturing: a
+    pinned buffer freed then would record an event, which the capture
+    forbids."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    finally:
+        if collecting:
+            gc.enable()
     return graph.replay
 
 
-@dataclass
-class _Graph:
-    """One key's captured search and the buffers it reads and writes by
-    address, kept as long as the graph."""
+def to_file_order(order: torch.Tensor, outs, host=None) -> tuple:
+    """A step's outputs (scores, maps or None) gathered on their device
+    into the plan columns ``order`` (``Plan.order``: file order), and
+    their non-blocking copy into ``host`` (pinned buffers of the gathered
+    shapes) started, if given.  Returns the gathered tensors.  ``gather``,
+    not ``index_select``: the kernel is the same at every size, so a
+    start-up's small gather loads it (index_select picks its kernel by
+    size, and its first use in a process can take over 100 ms)."""
+    out = tuple(None if x is None else x.gather(1, order.view(
+        1, -1, *(1,) * (x.dim() - 2)).expand(
+            x.shape[0], len(order), *x.shape[2:])) for x in outs)
+    for h, d in zip(host or (), out):
+        if d is not None:
+            h.copy_(d, non_blocking=True)
+    return out
 
-    replay: object
-    launches: int  # SA kernel launches of one replay
-    split_launches: int  # those of them that split their restarts
-    figures: tuple  # launch_figures of one replay
-    staging: torch.Tensor  # uint8: the query in query_layout(1, n1r), the tag
-    parts: list  # numpy views of the query's parts in ``staging``
-    tag: np.ndarray  # uint32[1]: the tag's place in ``staging``
-    device: torch.Tensor  # uint8: ``staging``'s copy on the device
-    scores: torch.Tensor  # int32 [1, E], file order
-    maps: torch.Tensor | None  # int32 [1, E, n1r], file order, under LSOLN
 
+class Step:
+    """K queries of one round8 group, padded to n1r, against one shard's
+    plan, on the current stream of the plan's device.  ``backend``
+    "cuda" runs the kernel's wrapper (ops/sa_kernel.py), "torch" the
+    plain engine (ops/engine.py), with ``kw`` (lorder, lsoln, seed,
+    c_par, r_seq, params).  ``gather``: ``results`` all-gathers the
+    shards of the other ranks of a multi-process run
+    (parallel/distributed.to_host; every rank drains the same groups in
+    the same order, so the collectives match)."""
 
-class QueryGraphs:
-    """One query's search against a one-shard plan, from staging to drain,
-    as one CUDA graph per key (n1r, lorder, lsoln), replayed.
+    def __init__(self, plan: Plan, K: int, n1r: int, *, backend: str,
+                 gather: bool = False, **kw):
+        self.plan, self.K, self.n1r, self.kw = plan, K, n1r, kw
+        self.backend, self.gather = backend, gather
+        pin = plan.device.type == "cuda"
+        W = len(plan.file_index)
+        self.host = None if gather else (  # file order, on the host
 
-    A graph holds one copy of the query's staging buffer (pinned host
-    memory, ``query_layout`` and the tag) to the device; the
-    ``sa_search`` call that ``launch_group`` makes, with the same seed,
-    chains and params; the gather of the plan's columns into file order
-    (``file_order``); and one copy of the file-order scores (and maps
-    under LSOLN) into pinned host memory.  A key's first two searches
-    take the eager path, so that a fresh process's first search pays no
-    capture; the second captures the key's graph once its results are
-    drained (``searched``), and every later one replays it (``search``).
-    Searches run one at a time: each waits for its results before the
-    next stages.  ``capture`` turns a function into a replay
-    (``capture_graph`` on a card)."""
+            torch.empty((K, W), dtype=torch.int32, pin_memory=pin),
+            torch.empty((K, W, n1r), dtype=torch.int32, pin_memory=pin)
+            if kw["lsoln"] else None)
+        self.event = torch.cuda.Event() if pin else None
+        self.out = None  # the file-order scores and maps on the device
+        self.replay = None  # the captured launch (``capture``)
+        self.launches = (0, 0)  # its SA launches, and the split ones
 
-    def __init__(self, plan: Plan, nentries: int, *, seed: int, c_par: int,
-                 r_seq: int, params: SAParams = DEFAULTS,
-                 capture=capture_graph):
-        self.plan = plan
-        self.inverse = torch.from_numpy(file_order(plan.index, nentries)
-                                        ).to(plan.device)
-        self.search_kw = dict(seed=seed, c_par=c_par, r_seq=r_seq,
-                              params=params)
-        self.capture = capture
-        self.pin = plan.device.type == "cuda"
-        self.event = torch.cuda.Event() if self.pin else None
-        self.seen: set = set()
-        self.graphs: dict = {}
+    def launch(self, staged: torch.Tensor, tags) -> None:
+        """The step's device work on the current stream, which a capture
+        holds: one copy of ``staged`` (``Staging.buf``) to the device, one
+        engine call per query tile in its ``kernel_search.enqueue`` span
+        (``tags`` name the spans), the tiles joined, one gather into file
+        order (``Plan.order``) and, unless gathered, one non-blocking
+        copy of scores (and maps) to the host.  Each query keeps its own
+        tag, so the results do not depend on the tiling."""
+        plan = self.plan
+        *q, qtags = query_parts(staged.to(plan.device, non_blocking=True),
+                                self.K, self.n1r)
+        fn = {"cuda": sa_search, "torch": search_plan_plain}[self.backend]
+        parts = [self.enqueue(functools.partial(
+                     fn, *(x[t] for x in q), plan, tags=qtags[t], **self.kw),
+                     tags[t.start], t.stop - t.start)
+                 for t in tiles(self.K)]
+        s, m = parts[0] if len(parts) == 1 else (
+            torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]) if self.kw["lsoln"] else None)
+        self.out = to_file_order(plan.order, (s, m), self.host)
 
-    def has(self, query, lorder: bool, lsoln: bool) -> bool:
-        """Whether a search of ``query`` replays a graph."""
-        return (round8(query.order), lorder, lsoln) in self.graphs
-
-    def searched(self, query, lorder: bool, lsoln: bool) -> None:
-        """Note an eager search of ``query``; at its key's second, capture
-        the key's graph."""
-        key = (round8(query.order), lorder, lsoln)
-        if key in self.seen:
-            with device_guard(self.plan.device):
-                self._capture(key)
-        self.seen.add(key)
-
-    def _capture(self, key) -> None:
-        global graph_captures
-        n1r, lorder, lsoln = key
-        size = query_layout(1, n1r)[1]
-        staging = torch.zeros(size + 4, dtype=torch.uint8,
-                              pin_memory=self.pin)
-        dev = torch.empty_like(staging, device=self.plan.device)
-        parts, tags = query_parts(dev, 1, n1r), dev[size:].view(torch.int32)
-        E = len(self.inverse)
-        scores = torch.empty((1, E), dtype=torch.int32, pin_memory=self.pin)
-        maps = (torch.empty((1, E, n1r), dtype=torch.int32,
-                            pin_memory=self.pin) if lsoln else None)
-
-        def run():
-            dev.copy_(staging, non_blocking=True)
-            s, m = sa_search(*parts, self.plan, tags=tags, lorder=lorder,
-                             lsoln=lsoln, **self.search_kw)
-            scores.copy_(s.index_select(1, self.inverse), non_blocking=True)
-            if lsoln:
-                maps.copy_(m.index_select(1, self.inverse),
-                           non_blocking=True)
-
-        before = sa_search.launches, sa_search.split_launches
-        replay = self.capture(run)
-        launches = sa_search.launches - before[0]
-        split_launches = sa_search.split_launches - before[1]
-        sa_search.launches, sa_search.split_launches = before
-        graph_captures += 1
-        kw = self.search_kw
-        figures = launch_figures(self.plan, 1, n1r, c_par=kw["c_par"],
-                                 r_seq=kw["r_seq"], lsoln=lsoln,
-                                 maxiter=kw["params"].maxiter)
-        host = staging.numpy()
-        self.graphs[key] = _Graph(
-            replay, launches, split_launches, figures, staging,
-            query_parts(host, 1, n1r),
-            host[size:].view(np.uint32), dev, scores, maps)
-
-    def search(self, query, tag: int, *, lorder: bool, lsoln: bool):
-        """Search ``query`` under its tag by replaying its key's graph
-        (``has``).  Returns (scores int32[E], maps int32[E, n1] or None),
-        file order, in arrays of their own.  The spans are the eager
-        path's: ``kernel_search.launch_group`` (the staging and the
-        replay), ``kernel_search.enqueue`` (the replay, with the captured
-        launches' figures) and
-        ``kernel_search.drain`` (the wait and the copy-out, with the
-        bytes brought to the host)."""
-        global graph_replays
-        g = self.graphs[(round8(query.order), lorder, lsoln)]
-        sp = trace.begin("kernel_search.launch_group", tag, 1)
+    def enqueue(self, run, tag: int, K: int):
+        """``run()`` in a ``kernel_search.enqueue`` span that carries the
+        figures of the SA launches that K of the step's queries make
+        (``launch_figures``)."""
+        sp = trace.begin("kernel_search.enqueue", tag, K)
+        figures = trace.NO_FIGURES
         try:
-            stage_queries([query], g.parts)
-            g.tag[0] = tag & M32
-            esp = trace.begin("kernel_search.enqueue", tag, 1)
-            try:
-                with device_guard(self.plan.device):
-                    g.replay()
-                    if self.event is not None:
-                        self.event.record()
-            finally:
-                trace.end(esp, 0, g.figures)
-            graph_replays += 1
-            sa_search.launches += g.launches
-            sa_search.split_launches += g.split_launches
+            out = run()
+            if sp is not None:
+                kw = self.kw
+                figures = launch_figures(
+                    self.plan, K, self.n1r, c_par=kw["c_par"],
+                    r_seq=kw["r_seq"], lsoln=kw["lsoln"],
+                    maxiter=kw["params"].maxiter)
+            return out
         finally:
-            trace.end(sp)
-        sp = trace.begin("kernel_search.drain")
-        nbytes = 0
-        try:
+            trace.end(sp, 0, figures)
+
+    def run(self, staged: torch.Tensor, tags) -> None:
+        """``launch``, or replay its capture in one ``enqueue`` span (its
+        SA launches counted as the capture made them), on the plan's
+        device; then record the event that ``results`` waits for."""
+        with device_guard(self.plan.device):
+            if self.replay is None:
+                self.launch(staged, tags)
+            else:
+                self.enqueue(self.replay, tags[0], self.K)
+                sa_search.launches += self.launches[0]
+                sa_search.split_launches += self.launches[1]
             if self.event is not None:
-                self.event.synchronize()
-            scores = g.scores.numpy()[0].copy()
-            maps = (g.maps.numpy()[0, :, :query.order].copy() if lsoln
-                    else None)
-            nbytes = g.scores.nbytes + (g.maps.nbytes if lsoln else 0)
-            return scores, maps
-        finally:
-            trace.end(sp, nbytes)
+                self.event.record()
+
+    def capture(self, staged: torch.Tensor, tags,
+                capture=capture_graph) -> None:
+        """Capture ``launch(staged, tags)`` for ``run`` to replay from then
+        on (``staged`` and the step's buffers live as long): no span is
+        recorded while capturing, and each replay, not the capture,
+        counts the SA launches."""
+        before = sa_search.launches, sa_search.split_launches
+
+        def quiet():
+            with trace.paused():
+                self.launch(staged, tags)
+
+        with device_guard(self.plan.device):
+            self.replay = capture(quiet)
+        self.launches = (sa_search.launches - before[0],
+                         sa_search.split_launches - before[1])
+        sa_search.launches, sa_search.split_launches = before
+
+    def results(self):
+        """(``Plan.file_index``, scores int32 [K, W], maps int32 [K, W, n1r]
+        or None) of the launched step, on the host once the device is
+        done; every rank's, concatenated, when gathered."""
+        if self.gather:
+            s, m = self.out
+            index = torch.from_numpy(self.plan.file_index).to(s.device)
+            return (to_host(index), to_host(s, dim=1),
+                    None if m is None else to_host(m, dim=1))
+        if self.event is not None:
+            self.event.synchronize()
+        s, m = self.host
+        return (self.plan.file_index, s.numpy(),
+                None if m is None else m.numpy())

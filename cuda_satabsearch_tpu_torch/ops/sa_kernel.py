@@ -246,6 +246,20 @@ def launch_streams(index: int):
         return torch.cuda.Stream(), torch.cuda.Event(), torch.cuda.Event()
 
 
+def fork_join(current, wide, narrow) -> None:
+    """Run ``wide(side)`` on the side stream of ``current``'s device
+    (``launch_streams``), forked from ``current``, then ``narrow(current)``,
+    and join the side stream back to ``current``: how a plan's two launch
+    classes run together."""
+    side, fork, join = launch_streams(current.device_index)
+    fork.record(current)
+    side.wait_event(fork)
+    wide(side)
+    narrow(current)
+    join.record(side)
+    current.wait_event(join)
+
+
 def upload_tags(tags, dev: torch.device) -> torch.Tensor:
     """Query tags as the kernel takes them: int32[K] on ``dev`` holding
     the uint32 value tag & 0xffffffff."""
@@ -374,13 +388,8 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
         if len(plan.classes) == 1:
             launch(0, current)
         else:  # the wide class on the side stream: both classes together
-            side, fork, join = launch_streams(current.device_index)
-            fork.record(current)
-            side.wait_event(fork)
-            launch(0, side)
-            launch(1, current)
-            join.record(side)
-            current.wait_event(join)
+            fork_join(current, functools.partial(launch, 0),
+                      functools.partial(launch, 1))
     return scores, maps
 
 

@@ -17,9 +17,9 @@ On a card the session brings up each device once (core/warmup.py:
 the start-up kernel, the SA kernel's module, a search's launch path)
 after the DB load and before the upload, as the JAX package orders
 load -> warm -> upload, and reports the times on stderr.  There is no
-compile cache.  On one card, ``search`` replays a CUDA graph per query
-width once the width has been searched twice
-(ops/kernel_search.QueryGraphs).
+compile cache.  The searches run through ops/search.Searcher, which on
+one card replays a one-query search's step as a CUDA graph once its
+query width has been searched twice.
 """
 
 from __future__ import annotations
@@ -37,12 +37,11 @@ from .io.pack import (DEFAULT_BUCKETS, PackedDB, PackedQuery,
                       pack_database, pack_query)
 from .io import native
 from .io.parser import TableauEntry, read_database
-from .ops.common import C_MAX, round8
-from .ops.kernel_search import QueryGraphs
+from .ops.common import round8
 from .parallel import distributed
 from .parallel.mesh import make_mesh, mesh_shards
-from .ops.search import (SearchResult, choose_chains, drain_db_many,
-                         launch_db_many, resolve_backend, upload_db)
+from .ops.search import (SearchResult, Searcher, resolve_backend, upload_db,
+                         uses_graphs)
 from .stats.gumbel import score_stats
 
 
@@ -94,16 +93,10 @@ class SearchSession:
                 torch.cuda.synchronize(d)
         self.upload_ms = (time.perf_counter() - t0) * 1000.0
         self._query_tag = 0
-        # one query's search as a replayed CUDA graph, where the session
-        # searches one card with the kernel: no mesh, so one shard and no
-        # gather (ops/kernel_search.QueryGraphs)
-        self.graphs = None
-        if uses_graphs(self.backend, self.mesh) and self.db.nentries:
-            c_par, r_seq = choose_chains(cfg.maxstart,
-                                         min(cfg.c_max, C_MAX))
-            self.graphs = QueryGraphs(self.device_db[0], self.db.nentries,
-                                      seed=cfg.seed, c_par=c_par,
-                                      r_seq=r_seq, params=cfg.params)
+        self.searcher = Searcher(
+            self.db, self.device_db, maxstart=cfg.maxstart, c_max=cfg.c_max,
+            seed=cfg.seed, params=cfg.params, backend=self.backend,
+            gather=self.gather, graphs=uses_graphs(self.backend, self.mesh))
 
     @property
     def nentries(self) -> int:
@@ -120,17 +113,6 @@ class SearchSession:
             return pack_query(self.db.entry(*loc))
         finally:
             trace.end(sp)
-
-    def _launch(self, queries, tags, lorder: bool, lsoln: bool):
-        cfg = self.config
-        return launch_db_many(queries, self.device_db, maxstart=cfg.maxstart,
-                              lorder=lorder, lsoln=lsoln, seed=cfg.seed,
-                              query_tags=tags, c_max=cfg.c_max,
-                              backend=self.backend, params=cfg.params)
-
-    def _drain(self, launched) -> list[list[SearchResult]]:
-        return drain_db_many(launched, self.db, maxstart=self.config.maxstart,
-                             gather=self.gather)
 
     def search_many(self, queries, *, lorder: bool = True,
                     lsoln: bool = False) -> list[SearchResult]:
@@ -149,11 +131,13 @@ class SearchSession:
             groups: dict[int, list[int]] = {}
             for i, q in enumerate(queries):
                 groups.setdefault(round8(q.order), []).append(i)
-            launched = [self._launch([queries[i] for i in idxs],
-                                     [tags[i] for i in idxs], lorder, lsoln)
+            launched = [self.searcher.launch([queries[i] for i in idxs],
+                                             [tags[i] for i in idxs],
+                                             lorder=lorder, lsoln=lsoln)
                         for idxs in groups.values()]
             out: list = [None] * len(queries)
-            for idxs, results in zip(groups.values(), self._drain(launched)):
+            for idxs, results in zip(groups.values(),
+                                     self.searcher.drain(launched)):
                 for i, res in zip(idxs, results):
                     out[i] = res
             return out
@@ -164,39 +148,19 @@ class SearchSession:
                query_tag: int | None = None,
                lsoln: bool = True) -> SearchResult:
         """Search one query under ``query_tag`` (default: the session's
-        next tag).  Where the session searches one card with the kernel
-        (``uses_graphs``), a query whose key (round8 order, lorder,
-        lsoln) was searched twice before replays that key's CUDA graph,
-        captured after the second (ops/kernel_search.QueryGraphs);
-        otherwise it is launched and drained as ``search_many`` does.
+        next tag): one launch and its drain, or, on one card with the
+        kernel, a replay of its step's CUDA graph once its key (round8
+        order, lorder, lsoln) was searched twice (ops/search.Searcher).
         The results are the same, bit for bit."""
         if query_tag is None:
             query_tag = self._query_tag
         self._query_tag = query_tag + 1
         sp = trace.begin("session.search", query_tag, 1)
         try:
-            graphs = self.graphs
-            if graphs is not None and graphs.has(query, lorder, lsoln):
-                scores, maps = graphs.search(query, query_tag, lorder=lorder,
-                                             lsoln=lsoln)
-                return SearchResult(scores=scores, ssemaps=maps,
-                                    names=self.db.names,
-                                    orders=self.db.orders,
-                                    query_order=query.order,
-                                    maxstart=self.config.maxstart)
-            result = self._drain([self._launch([query], [query_tag], lorder,
-                                               lsoln)])[0][0]
-            if graphs is not None:
-                graphs.searched(query, lorder, lsoln)
-            return result
+            return self.searcher.search(query, query_tag, lorder=lorder,
+                                        lsoln=lsoln)
         finally:
             trace.end(sp)
-
-
-def uses_graphs(backend: str, mesh) -> bool:
-    """Whether ``search`` replays CUDA graphs: the kernel's backend on one
-    card, with no mesh (one shard, nothing gathered across processes)."""
-    return backend == "cuda" and mesh is None
 
 
 def _load_db(dbfile: str, cfg: SessionConfig, pad_to: int) -> PackedDB:

@@ -11,8 +11,10 @@ is the Unix clock on which ``torch.profiler`` gives its CUDA records, so
 a span and the device activity it caused can be lined up.
 
 Spans are recorded while a ``torch.profiler`` profile runs, and inside
-``recording()``; otherwise a boundary costs a function call and two
-attribute reads, with no clock read and no allocation.  They are kept
+``recording()``, but not inside ``paused()`` (the capture of a CUDA
+graph, which launches nothing: its replays record); otherwise a boundary
+costs a function call and two attribute reads, with no clock read and
+no allocation.  They are kept
 in memory, in the order they end, up to ``BOUND`` spans; a span past
 the bound is counted in ``dropped()``.  Recording adds no
 synchronisation, event or copy on the device.  One thread records.
@@ -69,6 +71,7 @@ class Span(NamedTuple):
 class _Recorder:
     def __init__(self):
         self.forced = 0  # depth of recording() blocks
+        self.paused = 0  # depth of paused() blocks
         # closed spans as plain tuples, which the collector need not track:
         # (name, start_ns, sid, parent, request, tag, queries, end_ns, nbytes,
         # ctas, cta_slots, chain_moves)
@@ -84,7 +87,7 @@ _rec = _Recorder()
 
 def begin(name: str, tag: int = -1, queries: int = 0):
     """Open a span; None, at no further cost, when not recording."""
-    if not (_profiler._is_profiler_enabled or _rec.forced):
+    if not (_profiler._is_profiler_enabled or _rec.forced) or _rec.paused:
         return None
     r = _rec
     sid = r.next_sid
@@ -123,6 +126,16 @@ def recording():
         yield
     finally:
         _rec.forced -= 1
+
+
+@contextlib.contextmanager
+def paused():
+    """Record no span inside the block, even while recording."""
+    _rec.paused += 1
+    try:
+        yield
+    finally:
+        _rec.paused -= 1
 
 
 def spans() -> list[Span]:

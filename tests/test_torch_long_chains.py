@@ -12,7 +12,7 @@ figures of the ``kernel_search.enqueue`` span, on the CPU.
   ``cta_slots``, the card's SMs times each launch class's resident CTAs
   per SM (``sa_kernel.occupancy``, stubbed here), queried once per class
   and key and never while nothing records; 0 off a card.  A replayed
-  graph's enqueue span carries its capture's figures.
+  graph's enqueue span carries the figures of the launch it captured.
 * Spans that nothing gave figures carry 0.
 
 The figures are held on the card in tests/test_torch_long_chains_card.py.
@@ -30,8 +30,6 @@ from cuda_satabsearch_tpu_torch.core.constants import DEFAULTS  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops import (  # noqa: E402
     kernel_search, sa_kernel)
 from cuda_satabsearch_tpu_torch.ops.common import round8  # noqa: E402
-from cuda_satabsearch_tpu_torch.ops.kernel_search import (  # noqa: E402
-    QueryGraphs)
 from cuda_satabsearch_tpu_torch.ops.search import choose_chains  # noqa: E402
 from cuda_satabsearch_tpu_torch.session import (  # noqa: E402
     SearchSession, SessionConfig)
@@ -190,35 +188,28 @@ def test_no_occupancy_query_while_nothing_records(db, on_a_card):
 
 
 def test_a_replay_carries_its_captures_figures(db, on_a_card):
-    """The graph path on the CPU (the capture runs the function itself):
-    the figures are taken at the capture, and each replay's enqueue span
-    carries them."""
+    """The graph path on the CPU (the replay runs the captured function
+    itself): each replay's enqueue span carries the figures of the
+    launch it captured, the occupancy queried once per class."""
     sess, calls = on_a_card
-    cfg = sess.config
-    c_par, r_seq = choose_chains(cfg.maxstart, cfg.c_max)
-    sess.graphs = QueryGraphs(sess.device_db[0], sess.nentries,
-                              seed=cfg.seed, c_par=c_par, r_seq=r_seq,
-                              params=cfg.params, capture=lambda fn: fn)
+    c_par, r_seq = choose_chains(sess.config.maxstart, sess.config.c_max)
+    replays = []
+    sess.searcher.capture = lambda fn: lambda: replays.append(fn()) or None
     q = sess.resolve_query(db[1].names[1])
     for _ in range(2):  # eager, eager and the capture
         sess.search(q, lsoln=False)
-    assert sess.graphs.has(q, True, False)
-    taken = len(calls)
-    assert taken == len(sess.device_db[0].classes)
-    replays = kernel_search.graph_replays
+    assert list(sess.searcher.graphs) == [(round8(q.order), True, False)]
+    assert calls == []  # r_seq 3 and nothing traced: no query yet
     with trace.recording():
         for _ in range(2):
             sess.search(q, lsoln=False)
-    assert kernel_search.graph_replays - replays == 2
-    (g,) = sess.graphs.graphs.values()
+    assert len(replays) == 2
     plan = sess.device_db[0]
     n1r = round8(q.order)
-    assert g.figures == (plan.nentries,
-                         SMS * ((3 + (n1r > 8)) + (7 + (n1r > 8))),
-                         DEFAULTS.maxiter * r_seq)
     assert [(s.ctas, s.cta_slots, s.chain_moves) for s in enqueues()] \
-        == [g.figures] * 2
-    assert len(calls) == taken
+        == [(plan.nentries, SMS * ((3 + (n1r > 8)) + (7 + (n1r > 8))),
+             DEFAULTS.maxiter * r_seq)] * 2
+    assert len(calls) == len(plan.classes)
 
 
 def test_spans_without_launches_carry_no_figures(db, sess):

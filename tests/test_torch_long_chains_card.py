@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from cuda_satabsearch_tpu_torch import trace
-from cuda_satabsearch_tpu_torch.ops import kernel_search, sa_kernel
+from cuda_satabsearch_tpu_torch.ops import sa_kernel
 from cuda_satabsearch_tpu_torch.ops.common import round8
 from cuda_satabsearch_tpu_torch.session import SearchSession, SessionConfig
 
@@ -43,19 +43,31 @@ def card():
     return torch.cuda.get_device_name(0)
 
 
+def count_replays(sess) -> list:
+    """The session's graph replays, counted through its capture seam
+    (ops/search.Searcher.capture)."""
+    replays, capture = [], sess.searcher.capture
+
+    def counted(fn):
+        replay = capture(fn)
+        return lambda: replays.append(replay())
+    sess.searcher.capture = counted
+    return replays
+
+
 def test_long_chain_graphs_equal_eager_and_carry_the_figures(card):
     cfg = SessionConfig(maxstart=MAXSTART, seed=2 ** 31 - 9)
     sess, eager = (SearchSession(DB586, cfg) for _ in range(2))
-    eager.graphs = None
-    assert sess.graphs is not None
-    assert sess.graphs.search_kw["r_seq"] == 32
+    eager.searcher.capture = None
+    assert sess.searcher.capture is not None
+    assert sess.searcher.kw["r_seq"] == 32
     plan = sess.device_db[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert plan.sms == sms and len(plan.classes) == 2
     firsts = {}
     for i, o in enumerate(sess.db.orders):
         firsts.setdefault(round8(int(o)), sess.db.names[i])
-    replays = kernel_search.graph_replays
+    replays = count_replays(sess)
     for width, name in sorted(firsts.items()):
         q = sess.resolve_query(name)
         tag = 5000 + width
@@ -81,4 +93,4 @@ def test_long_chain_graphs_equal_eager_and_carry_the_figures(card):
               f"{want[1]} slots ({sms} SMs x {per_sm} per SM, wide and "
               f"narrow class), fill {100 * min(1, want[0] / want[1]):.1f} %, "
               f"{want[2]} moves a chain", end="")
-    assert kernel_search.graph_replays - replays == 2 * len(firsts)
+    assert len(replays) == 2 * len(firsts)

@@ -42,9 +42,10 @@ from cuda_satabsearch_tpu_torch.ops.common import (  # noqa: E402
     round8, slots_per_restart)
 from cuda_satabsearch_tpu_torch.ops.engine import search_plain  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops.kernel_search import (  # noqa: E402
-    QueryGraphs, launch_figures, pack_queries)
+    launch_figures, pack_queries)
 from cuda_satabsearch_tpu_torch.ops.sa_kernel import (  # noqa: E402
     SPLIT_WAVES, restart_split)
+from cuda_satabsearch_tpu_torch.ops.search import Searcher  # noqa: E402
 from cuda_satabsearch_tpu_torch.session import (  # noqa: E402
     SearchSession, SessionConfig)
 
@@ -273,14 +274,16 @@ def test_a_replay_adds_its_captures_split_launches(on_a_card, monkeypatch):
     counted.launches = counted.split_launches = 0
     monkeypatch.setattr(kernel_search, "sa_search", counted)
     maxiter2 = dataclasses.replace(DEFAULTS, maxiter=2)
-    graphs = QueryGraphs(plan, sess.nentries, seed=5, c_par=2, r_seq=2,
-                         params=maxiter2, capture=capture)
+    # 2 chains of 2 restarts in order, on the kernel's wrapper
+    searcher = Searcher(sess.db, [plan], maxstart=4, c_max=2, seed=5,
+                        params=maxiter2)
+    searcher.capture = capture
     q = sess.resolve_query(sess.db.names[0])
     for _ in range(2):  # a key's second search captures its graph
-        graphs.searched(q, True, False)
-    (g,) = graphs.graphs.values()
-    assert (g.launches, g.split_launches) == (2, 2)
+        searcher.search(q, 0, lorder=True, lsoln=False)
+    (g,) = searcher.graphs.values()
+    assert g.steps[0].launches == (2, 2)
     assert (counted.launches, counted.split_launches) == (0, 0)
     for _ in range(3):
-        graphs.search(q, 0, lorder=True, lsoln=False)
+        searcher.search(q, 0, lorder=True, lsoln=False)
     assert (counted.launches, counted.split_launches) == (6, 6)

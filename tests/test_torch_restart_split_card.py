@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from cuda_satabsearch_tpu_torch.ops import kernel_search, sa_kernel
+from cuda_satabsearch_tpu_torch.ops import sa_kernel
 from cuda_satabsearch_tpu_torch.ops.common import round8
 from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
 from cuda_satabsearch_tpu_torch.session import SearchSession, SessionConfig
@@ -81,6 +81,18 @@ def card():
     return torch.cuda.get_device_name(0)
 
 
+def count_replays(sess) -> list:
+    """The session's graph replays, counted through its capture seam
+    (ops/search.Searcher.capture)."""
+    replays, capture = [], sess.searcher.capture
+
+    def counted(fn):
+        replay = capture(fn)
+        return lambda: replays.append(replay())
+    sess.searcher.capture = counted
+    return replays
+
+
 def width16(sess, n):
     """The first n DB entries of 9-16 SSEs (round8 width 16)."""
     names = [nm for nm, o in zip(sess.db.names, sess.db.orders)
@@ -94,7 +106,7 @@ def width16(sess, n):
 def test_a_split_query_equals_its_row_of_an_unsplit_list(card, maxstart,
                                                          lsoln):
     sess = SearchSession(DB586, SessionConfig(maxstart=maxstart, seed=SEED))
-    sess.graphs = None  # eager: the list and the single searches alike
+    sess.searcher.capture = None  # eager: the list and the searches alike
     plan = sess.device_db[0]
     r_seq = maxstart // 128
     split = sa_kernel.restart_split(plan, 1, 16, c_par=128, r_seq=r_seq,
@@ -129,12 +141,12 @@ def test_a_split_query_equals_its_row_of_an_unsplit_list(card, maxstart,
 def test_split_replays_equal_eager_searches(card, lsoln):
     cfg = SessionConfig(maxstart=4096, seed=SEED)
     sess, eager = (SearchSession(DB586, cfg) for _ in range(2))
-    eager.graphs = None
-    assert sess.graphs is not None
+    eager.searcher.capture = None
+    assert sess.searcher.capture is not None
     firsts = {}
     for i, o in enumerate(sess.db.orders):
         firsts.setdefault(round8(int(o)), sess.db.names[i])
-    replays = kernel_search.graph_replays
+    replays = count_replays(sess)
     for width, name in sorted(firsts.items())[:4]:
         q = sess.resolve_query(name)
         ref = eager.search(q, lsoln=lsoln, query_tag=700 + width)
@@ -146,7 +158,7 @@ def test_split_replays_equal_eager_searches(card, lsoln):
             if lsoln:
                 for a, b in zip(got.ssemaps, ref.ssemaps):
                     np.testing.assert_array_equal(a, b)
-    assert kernel_search.graph_replays - replays == 2 * 4
+    assert len(replays) == 2 * 4
 
 
 def test_instantiations_keep_their_resources(card, tmp_path):

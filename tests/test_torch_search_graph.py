@@ -1,21 +1,23 @@
-"""One query's search as a replayed graph (cuda_satabsearch_tpu_torch/
-ops/kernel_search.py ``QueryGraphs``), on the CPU.
+"""One search step for the eager path and the replayed graph
+(cuda_satabsearch_tpu_torch/ops/kernel_search.py ``Step``,
+ops/search.py ``Searcher``), on the CPU.
 
-A CUDA graph needs a card; here ``QueryGraphs`` takes a capture that
-returns the function itself, so that each replay runs the plain engine
-through the same staging, gather and copy-out as the graph does.
+A CUDA graph needs a card; here the searcher's ``capture`` returns a
+replay that runs the captured function itself (counting captures and
+replays), so that each replay runs the plain engine through the same
+staging, gather and copy-out as the graph does.
 
 * The route: ``SearchSession.search`` uses graphs only with the kernel's
   backend and no mesh; ``-c``, ``--backend torch`` and a mesh search
   eagerly.
-* A key's first two searches are eager, the second captures the key's
-  graph after its drain, later ones replay; every result equals the
-  eager path's, bit for bit.
-* The file-order gather by ``file_order``'s inverse permutation equals
-  ``drain``'s host scatter on plans with padding and buckets in both
-  launch classes.
-* The staging buffer holds ``pack_queries``'s bytes for widths 8-112, and
-  the tag as uint32 bits.
+* A key's first two searches are eager, the second captures its step
+  after the drain, later ones replay; every result equals the eager
+  path's, bit for bit, in arrays of its own.
+* The step's gather into file order and a mesh's placement equal a
+  per-entry reference on DBs with padding and buckets in both launch
+  classes; a whole DB's plan must hold every entry.
+* The staging buffer holds ``pack_queries``'s bytes for widths 8-112,
+  for one replayed query and for a list, and the tags as uint32 bits.
 * The counters: one capture per key searched twice, one replay per
   search after a key's second, and each replay's launches.
 * Distances off the bf16 grid are refused on the graph path too.
@@ -36,12 +38,12 @@ from cuda_satabsearch_tpu_torch.io.pack import (  # noqa: E402
 from cuda_satabsearch_tpu_torch.io.writer import format_database  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops import kernel_search  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops.kernel_search import (  # noqa: E402
-    Launched, QueryGraphs, drain, file_order, make_plan, pack_queries,
-    query_layout)
+    make_plan, pack_queries, query_layout)
 from cuda_satabsearch_tpu_torch.ops.search import (  # noqa: E402
-    choose_chains, upload_db)
+    search_db_many, upload_db, uses_graphs)
+from cuda_satabsearch_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from cuda_satabsearch_tpu_torch.session import (  # noqa: E402
-    SearchSession, SessionConfig, uses_graphs)
+    SearchSession, SessionConfig)
 
 from conftest import random_entry  # noqa: E402
 
@@ -72,19 +74,35 @@ def session(dbfile, **kw):
                                                **kw))
 
 
-def not_captured(fn):
-    """A capture for the CPU: the replay runs ``fn`` itself."""
-    return fn
+class Capture:
+    """A capture for the CPU: like ``torch.cuda.graph`` it runs the
+    function once while capturing (``capturing`` is true then), and its
+    replay runs the function again; both are counted."""
+
+    def __init__(self):
+        self.captures = self.replays = 0
+        self.capturing = False
+
+    def __call__(self, fn):
+        self.captures += 1
+        self.capturing = True
+        try:
+            fn()
+        finally:
+            self.capturing = False
+
+        def replay():
+            self.replays += 1
+            fn()
+        return replay
 
 
-def attach(sess, capture=not_captured) -> QueryGraphs:
-    """Give a CPU session the graphs a card's session makes."""
-    cfg = sess.config
-    c_par, r_seq = choose_chains(cfg.maxstart, cfg.c_max)
-    sess.graphs = QueryGraphs(sess.device_db[0], sess.nentries,
-                              seed=cfg.seed, c_par=c_par, r_seq=r_seq,
-                              params=cfg.params, capture=capture)
-    return sess.graphs
+def attach(sess) -> Capture:
+    """Give a CPU session the graphs and the kernel's wrapper (which runs
+    the plain engine on the CPU) that a card's session has."""
+    sess.searcher.kw["backend"] = "cuda"
+    sess.searcher.capture = Capture()
+    return sess.searcher.capture
 
 
 @pytest.mark.parametrize("backend, mesh, route", [
@@ -100,20 +118,18 @@ def test_graphs_only_for_the_kernel_on_one_card(backend, mesh, route):
                                 {"use_mesh": True, "devices": ["cpu"] * 2}])
 def test_cpu_torch_and_mesh_sessions_search_eagerly(dbfile, kw):
     sess = session(dbfile, **kw)
-    assert sess.backend == "torch" and sess.graphs is None
-    before = kernel_search.graph_replays, kernel_search.graph_captures
+    assert sess.backend == "torch" and sess.searcher.capture is None
     q = sess.resolve_query("e2")
-    first, second = (sess.search(q, query_tag=3) for _ in range(2))
+    first, second, third = (sess.search(q, query_tag=3) for _ in range(3))
     np.testing.assert_array_equal(first.scores, second.scores)
-    assert (kernel_search.graph_replays,
-            kernel_search.graph_captures) == before
+    np.testing.assert_array_equal(first.scores, third.scores)
+    assert sess.searcher.graphs == {}
 
 
 def test_two_eager_searches_the_second_captures_later_ones_replay(dbfile):
     ref = session(dbfile)
     sess = session(dbfile)
-    captured = []
-    attach(sess, lambda fn: captured.append(fn) or fn)
+    cap = attach(sess)
     # (query, lorder, lsoln, graphs captured after it, replayed); keys
     # (n1r, lorder, lsoln): e0 and e1 share n1r 8, e5 has 40 and e6 56
     calls = [("e0", True, True, 0, 0), ("e1", True, True, 1, 0),
@@ -123,11 +139,11 @@ def test_two_eager_searches_the_second_captures_later_ones_replay(dbfile):
              ("e6", True, False, 2, 0), ("e1", True, False, 3, 0)]
     for name, lorder, lsoln, n, replayed in calls:
         q = sess.resolve_query(name)
-        replays = kernel_search.graph_replays
+        replays = cap.replays
         got = sess.search(q, lorder=lorder, lsoln=lsoln, query_tag=9)
         exp = ref.search(q, lorder=lorder, lsoln=lsoln, query_tag=9)
-        assert len(captured) == n
-        assert kernel_search.graph_replays - replays == replayed
+        assert cap.captures == n
+        assert cap.replays - replays == replayed
         np.testing.assert_array_equal(got.scores, exp.scores)
         assert got.scores.dtype == np.int32
         if lsoln:
@@ -136,8 +152,9 @@ def test_two_eager_searches_the_second_captures_later_ones_replay(dbfile):
         else:
             assert got.ssemaps is None
         assert (got.names, got.query_order) == (exp.names, q.order)
-    assert sorted(sess.graphs.graphs) == [(8, True, False), (8, True, True),
-                                          (40, False, True)]
+    assert sorted(sess.searcher.graphs) == [(8, True, False),
+                                            (8, True, True),
+                                            (40, False, True)]
 
 
 def test_results_are_arrays_of_their_own(dbfile):
@@ -169,97 +186,118 @@ def _db_with_padding(seed, pad_to):
 
 @pytest.mark.parametrize("pad_to", [1, 3, 4])
 @pytest.mark.parametrize("lsoln", [True, False])
-def test_file_order_gather_equals_the_drain_scatter(pad_to, lsoln):
+def test_file_order_gather_equals_the_drain_scatter(pad_to, lsoln,
+                                                    monkeypatch):
+    """An engine whose every output names its (query tag, entry): the
+    step's gather of the whole DB's plan (padding dropped) and the
+    drain's placement of a mesh of ``pad_to`` shards (padding last in
+    each) give each entry's values at its file index."""
     db = _db_with_padding(30 + pad_to, pad_to)
-    (plan,) = upload_db(db, "cpu")
-    assert [len(c.buckets) > 1 for c in plan.classes] == [True, True]
-    assert (plan.index < 0).any() == (pad_to > 1)
+    (whole,) = upload_db(db, "cpu")
+    shards = upload_db(db, make_mesh(["cpu"] * pad_to))
+    assert [len(c.buckets) > 1 for c in whole.classes] == [True, True]
+    assert (whole.index < 0).any() == (pad_to > 1)
+    assert whole.whole and len(whole.file_index) == db.nentries
+    for plan in shards:
+        assert plan.whole == (pad_to == 1)
+        n = np.count_nonzero(plan.file_index >= 0)
+        assert (plan.file_index[n:] == -1).all()
+        assert (np.diff(plan.file_index[:n]) > 0).all()
+    K, n1r, tags = 3, 16, [5, 6, 2 ** 31 + 7]
+
+    def by_entry(qtypes, qtab, qdmat, n1s, plan, *, tags, lsoln, **kw):
+        k = tags.to(torch.int64).remainder(2 ** 32)[:, None]
+        s = 1000 * k + torch.from_numpy(plan.index.astype(np.int64))
+        m = 7 * s[..., None] + torch.arange(n1r) if lsoln else None
+        return s.to(torch.int32), None if m is None else m.to(torch.int32)
+
+    monkeypatch.setattr(kernel_search, "search_plan_plain", by_entry)
     r = np.random.default_rng(pad_to)
-    K, n1r, E = 3, 16, plan.nentries
-    s = torch.from_numpy(r.integers(-2 ** 31, 2 ** 31, (K, E), np.int32))
-    m = (torch.from_numpy(r.integers(-1, 40, (K, E, n1r), np.int32))
-         if lsoln else None)
-    queries = [pack_query(random_entry(r, 16, "q"))] * K
-    (want,) = drain([Launched(queries=queries, n1r=n1r, lsoln=lsoln,
-                              outputs=[(plan.device, plan.index, s, m)])],
-                    db.nentries)
-    inverse = torch.from_numpy(file_order(plan.index, db.nentries))
-    got_s = s.index_select(1, inverse).numpy()
-    got_m = m.index_select(1, inverse).numpy() if lsoln else None
-    for k, (ws, wm) in enumerate(want):
-        np.testing.assert_array_equal(got_s[k], ws)
-        if lsoln:
-            np.testing.assert_array_equal(got_m[k], wm)
+    queries = [pack_query(random_entry(r, o, "q")) for o in (16, 9, 12)]
+    for plans in ([whole], shards):
+        got = search_db_many(queries, db, plans, query_tags=tags,
+                             lsoln=lsoln, maxstart=2, backend="torch")
+        for t, q, res in zip(tags, queries, got):
+            want = (1000 * t + np.arange(db.nentries)).astype(np.int32)
+            np.testing.assert_array_equal(res.scores, want)
+            if lsoln:
+                np.testing.assert_array_equal(
+                    res.ssemaps, (7 * want[:, None].astype(np.int64)
+                                  + np.arange(q.order)).astype(np.int32))
+            else:
+                assert res.ssemaps is None
 
 
 def test_file_order_refuses_a_plan_without_every_entry():
     db = _db_with_padding(40, 2)
     (plan,) = upload_db(db, "cpu")
-    part = make_plan(plan.buckets[1:])
     with pytest.raises(ValueError, match="every entry"):
-        file_order(part.index, db.nentries)
+        make_plan(plan.buckets[1:], nentries=db.nentries)
+    make_plan(plan.buckets[1:])  # a shard's plan: any subset
 
 
 @pytest.mark.parametrize("n1r", range(8, 113, 8))
 def test_staging_holds_pack_queries_bytes(tmp_path, n1r):
+    """One query's captured group (restaged at its replay) and a list of
+    three: the queries' parts and gaps are ``pack_queries``'s bytes, the
+    tags their uint32 values."""
     r = np.random.default_rng(n1r)
-    order = int(r.integers(n1r - 7, min(n1r, 111) + 1))
     entries = [random_entry(r, 4, "e0"), random_entry(r, 6, "e1")]
     path = tmp_path / "db.ascii"
     path.write_text(format_database(entries))
     sess = SearchSession(str(path), SessionConfig(maxstart=1, device="cpu"))
-    graphs = attach(sess)
-    q = pack_query(random_entry(r, order, "q"))
+    attach(sess)
+    qs = [pack_query(random_entry(
+        r, int(r.integers(n1r - 7, min(n1r, 111) + 1)), f"q{k}"))
+        for k in range(3)]
     tag = 2 ** 32 + 2 ** 31 + n1r
     for _ in range(3):  # eager, eager and capture, replay
-        sess.search(q, lsoln=False, query_tag=tag)
-    g = graphs.graphs[(n1r, True, False)]
-    size = query_layout(1, n1r)[1]
-    want = bytes(pack_queries([q], n1r, "cpu")[0].untyped_storage())
-    staging = g.staging.numpy()
-    assert len(want) == size and staging.nbytes == size + 4
-    assert staging[:size].tobytes() == want
-    assert int(g.tag[0]) == tag & 0xFFFFFFFF
-    assert g.device.numpy().tobytes() == staging.tobytes()
+        sess.search(qs[0], lsoln=False, query_tag=tag)
+    one = sess.searcher.graphs[(n1r, True, False)].staging.buf
+    tags = [tag, -1, 7]
+    listed = sess.searcher.launch(qs, tags, lorder=True, lsoln=False)
+    sess.searcher.drain([listed])
+    for staged, queries, ts in ((one, qs[:1], [tag]),
+                                (listed.staging.buf, qs, tags)):
+        layout, size = query_layout(len(queries), n1r)
+        at = layout[4][2]  # the tags' offset
+        want = bytes(pack_queries(queries, n1r, "cpu")[0].untyped_storage())
+        got = staged.numpy()
+        assert len(want) == size and got.nbytes == size
+        assert got[:at].tobytes() == want[:at]
+        assert got[at:].view(np.uint32)[:len(ts)].tolist() == [
+            t & 0xFFFFFFFF for t in ts]
 
 
 def test_counters_count_captures_replays_and_launches(dbfile, monkeypatch):
-    real, capturing = kernel_search.sa_search, []
+    real = kernel_search.sa_search
 
     def counted(*args, **kw):
         # on a card the wrapper's Python, which counts the launches, runs
         # while the graph is captured and not when it is replayed
-        counted.launches += len(args[4].classes) * len(capturing)
+        counted.launches += len(args[4].classes) * cap.capturing
         return real(*args, **kw)
-
-    def capture(fn):
-        capturing.append(fn)
-        fn()
-        capturing.pop()
-        return fn
 
     counted.launches = counted.split_launches = 0
     monkeypatch.setattr(kernel_search, "sa_search", counted)
     sess = session(dbfile)
-    attach(sess, capture)
+    cap = attach(sess)
     per = len(sess.device_db[0].classes)
     assert per == 2
     names = ["e0", "e1", "e0", "e0", "e6", "e1", "e7", "e0"]
     # keys (n1r): 8, 8, 8, 8, 56, 8, 72, 8: 3 first searches and one
     # second (eager; the second captures), 4 replays
-    replays = kernel_search.graph_replays
-    captures = kernel_search.graph_captures
     for name in names:
         sess.search(sess.resolve_query(name), query_tag=0)
-    assert kernel_search.graph_captures - captures == 1
-    assert kernel_search.graph_replays - replays == len(names) - 4
+    assert cap.captures == 1
+    assert cap.replays == len(names) - 4
     assert counted.launches == per * (len(names) - 4)
     assert counted.split_launches == 0  # r_seq 1: nothing to split
 
 
 def test_distances_off_the_bf16_grid_are_refused_on_the_graph_path(dbfile):
     sess = session(dbfile)
-    attach(sess)
+    cap = attach(sess)
     good = sess.resolve_query("e1")
     bad = sess.resolve_query("e0")
     bad.dmat[0, 1] = np.float32(3.14159)
@@ -267,14 +305,14 @@ def test_distances_off_the_bf16_grid_are_refused_on_the_graph_path(dbfile):
         sess.search(bad)  # eager
     for _ in range(2):
         sess.search(good)  # eager; the second captures the key's graph
-    assert (8, True, True) in sess.graphs.graphs
-    replays = kernel_search.graph_replays
+    assert (8, True, True) in sess.searcher.graphs
     with pytest.raises(ValueError, match="bf16 grid"):
         sess.search(bad)  # the graph path
-    assert kernel_search.graph_replays == replays
+    assert cap.replays == 0
     ref = session(dbfile).search(good, query_tag=4)
     np.testing.assert_array_equal(sess.search(good, query_tag=4).scores,
                                   ref.scores)
+    assert cap.replays == 1
 
 
 @pytest.mark.parametrize("lsoln", [True, False])
@@ -287,6 +325,8 @@ def test_graph_path_records_the_eager_spans(dbfile, lsoln):
         sess.search(q, lsoln=lsoln, query_tag=5)  # eager
         eager = trace.spans()
         sess.search(q, lsoln=lsoln, query_tag=5)  # eager, then captures
+        assert [s.name for s in trace.spans()] == 2 * [s.name
+                                                       for s in eager]
         trace.clear()
         sess.search(q, lsoln=lsoln, query_tag=6)  # replays
         sess.search(q, lsoln=lsoln, query_tag=7)
@@ -295,6 +335,8 @@ def test_graph_path_records_the_eager_spans(dbfile, lsoln):
     for first, s in zip(eager + eager, spans):
         assert (s.parent >= 0) == (first.parent >= 0)
         assert s.nbytes == first.nbytes
+        assert (s.ctas, s.cta_slots, s.chain_moves) == (
+            first.ctas, first.cta_slots, first.chain_moves)
     by = {s.sid: s for s in spans}
     for s in spans:
         if s.name == "kernel_search.enqueue":

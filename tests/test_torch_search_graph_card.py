@@ -1,5 +1,6 @@
 """On the card (skipped elsewhere): one query's search as a replayed CUDA
-graph (ops/kernel_search.py ``QueryGraphs``) against the eager path.
+graph of its step (ops/search.py ``Searcher``, ops/kernel_search.py
+``Step.capture``) against the eager path.
 
 * On the 586-entry DB and a seeded 14,291-entry one, for one query of
   every round8 width of the DB and each of LORDER and LSOLN true and
@@ -8,7 +9,8 @@ graph (ops/kernel_search.py ``QueryGraphs``) against the eager path.
   searches eagerly only, on scores and maps.
 * Each replay gives the plan's ``sa_plan_kernel`` records in a CUDA-only
   ``torch.profiler`` trace (as the benchmark's traced window runs), and
-  ``kernel_search.graph_replays`` and ``sa_search.launches`` count them.
+  the replays counted through the capture seam and ``sa_search.launches``
+  count them.
 
 On the card's host, which has no JAX (that ``tests/conftest.py``
 imports):
@@ -22,7 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-from cuda_satabsearch_tpu_torch.ops import kernel_search
 from cuda_satabsearch_tpu_torch.ops.common import round8
 from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
 from cuda_satabsearch_tpu_torch.session import SearchSession, SessionConfig
@@ -41,24 +42,36 @@ def card():
     return torch.cuda.get_device_name(0)
 
 
+def count_replays(sess) -> list:
+    """The session's graph replays, counted through its capture seam
+    (ops/search.Searcher.capture)."""
+    replays, capture = [], sess.searcher.capture
+
+    def counted(fn):
+        replay = capture(fn)
+        return lambda: replays.append(replay())
+    sess.searcher.capture = counted
+    return replays
+
+
 def sessions(name):
     """(a session with graphs, a session that searches eagerly only)."""
     entries = None if name == "586" else astral_entries(14291, seed=13)
     dbfile = DB586 if name == "586" else "<synthetic>"
     graphs, eager = (SearchSession(dbfile, SessionConfig(), entries=entries)
                      for _ in range(2))
-    eager.graphs = None
+    eager.searcher.capture = None
     return graphs, eager
 
 
 @pytest.mark.parametrize("db", ["586", "14291"])
 def test_graph_search_equals_the_eager_search(card, db):
     sess, eager = sessions(db)
-    assert sess.graphs is not None
+    assert sess.searcher.capture is not None
     firsts = {}
     for i, o in enumerate(sess.db.orders):
         firsts.setdefault(round8(int(o)), sess.db.names[i])
-    replays = kernel_search.graph_replays
+    replays = count_replays(sess)
     checked = 0
     for width, name in sorted(firsts.items()):
         q = sess.resolve_query(name)
@@ -77,8 +90,8 @@ def test_graph_search_equals_the_eager_search(card, db):
                     else:
                         assert got.ssemaps is None
                 checked += 1
-    assert kernel_search.graph_replays - replays == checked
-    assert len(sess.graphs.graphs) == checked
+    assert len(replays) == checked
+    assert len(sess.searcher.graphs) == checked
     print(f"\n{card}: {db} entries, {len(firsts)} widths x LORDER x LSOLN:"
           f" {checked} keys, graph == eager bitwise")
 
@@ -88,13 +101,14 @@ def test_each_replay_gives_the_kernel_records(card):
     from torch.profiler import ProfilerActivity, profile
 
     sess, _ = sessions("586")
+    replays = count_replays(sess)
     names = sess.db.names[::5]
     queries = [sess.resolve_query(n) for n in names]
     for q in queries:  # every key's first and second search (captures)
         for _ in range(2):
             sess.search(q, lsoln=True)
     torch.cuda.synchronize()
-    replays, launches = kernel_search.graph_replays, sa_search.launches
+    launches, replayed = sa_search.launches, len(replays)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for q in queries:
             sess.search(q, lsoln=True)
@@ -107,6 +121,6 @@ def test_each_replay_gives_the_kernel_records(card):
     print(f"\n{card}: {n} replays, {len(kernels)} sa_plan_kernel records, "
           f"{sa_search.launches - launches} launches counted")
     assert per == 2
-    assert kernel_search.graph_replays - replays == n
+    assert len(replays) - replayed == n
     assert sa_search.launches - launches == per * n
     assert len(kernels) == per * n

@@ -22,15 +22,15 @@ pytest.importorskip("jax")
 
 from cuda_satabsearch_tpu.ops.search import entry_keys as jentry_keys  # noqa: E402
 from cuda_satabsearch_tpu_torch import cli  # noqa: E402
-from cuda_satabsearch_tpu_torch import session as tsession  # noqa: E402
 from cuda_satabsearch_tpu_torch.io.pack import (  # noqa: E402
     pack_database, pack_query)
 from cuda_satabsearch_tpu_torch.ops import kernel_search, rng  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops.kernel_search import (  # noqa: E402
-    drain, launch_group, pack_queries, tiles)
+    pack_queries, tiles)
 from cuda_satabsearch_tpu_torch.ops.sa_kernel import (  # noqa: E402
     MAX_K, sa_search)
-from cuda_satabsearch_tpu_torch.ops.search import upload_db  # noqa: E402
+from cuda_satabsearch_tpu_torch.ops.search import (  # noqa: E402
+    search_db_many, upload_db)
 from cuda_satabsearch_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from cuda_satabsearch_tpu_torch.session import (  # noqa: E402
     SearchSession, SessionConfig)
@@ -82,10 +82,10 @@ def test_query_tiles_give_the_untiled_results(backend, ndev, monkeypatch):
     db = pack_database(_entries(), pad_to=ndev)
     shards = upload_db(db, "cpu" if ndev == 1 else make_mesh(["cpu"] * ndev))
     queries = _queries(3, [9, 16, 11, 13, 10, 16, 12, 15])
-    kw = dict(lorder=True, lsoln=True, seed=77, c_par=4, r_seq=2,
+    kw = dict(lorder=True, lsoln=True, seed=77, maxstart=8, c_max=4,
               backend=backend, query_tags=[10, 11, 12, 2 ** 31 + 3, 14, 15,
                                            16, 17])
-    whole = drain([launch_group(queries, shards, **kw)], db.nentries)[0]
+    whole = search_db_many(queries, db, shards, **kw)
     name = {"cuda": "sa_search", "torch": "search_plan_plain"}[backend]
     real, calls = getattr(kernel_search, name), []
 
@@ -95,17 +95,17 @@ def test_query_tiles_give_the_untiled_results(backend, ndev, monkeypatch):
 
     monkeypatch.setattr(kernel_search, name, record)
     monkeypatch.setattr(kernel_search, "K_TILE", 3)
-    tiled = drain([launch_group(queries, shards, **kw)], db.nentries)[0]
+    tiled = search_db_many(queries, db, shards, **kw)
     assert [n for n, _ in calls] == [3, 3, 2] * len(shards)
     tags = np.array(kw["query_tags"], np.int64).astype(np.uint32).view(
         np.int32).tolist()
     assert [t for _, ts in calls[:3] for t in ts] == tags
     launches = sum(len(p.classes) for p in shards) * 3
     assert launches == 6 * ndev  # both classes in every shard
-    for (s0, m0), (s1, m1), q in zip(whole, tiled, queries):
-        np.testing.assert_array_equal(s1, s0)
-        np.testing.assert_array_equal(m1, m0)
-        assert m1.shape == (db.nentries, q.order)
+    for r0, r1, q in zip(whole, tiled, queries):
+        np.testing.assert_array_equal(r1.scores, r0.scores)
+        np.testing.assert_array_equal(r1.ssemaps, r0.ssemaps)
+        assert r1.ssemaps.shape == (db.nentries, q.order)
 
 
 def test_search_many_launches_every_group_before_its_one_drain(monkeypatch):
@@ -117,8 +117,7 @@ def test_search_many_launches_every_group_before_its_one_drain(monkeypatch):
                          entries=_entries(2))
     queries = _queries(4, [5, 13, 20, 7, 16, 3])
     events = []
-    plain, drain_many = (kernel_search.search_plan_plain,
-                         tsession.drain_db_many)
+    plain, drain_many = kernel_search.search_plan_plain, sess.searcher.drain
 
     def launch(*a, **k):
         events.append("launch")
@@ -129,7 +128,7 @@ def test_search_many_launches_every_group_before_its_one_drain(monkeypatch):
         return drain_many(*a, **k)
 
     monkeypatch.setattr(kernel_search, "search_plan_plain", launch)
-    monkeypatch.setattr(tsession, "drain_db_many", drain_once)
+    monkeypatch.setattr(sess.searcher, "drain", drain_once)
     got = sess.search_many(queries, lsoln=True)
     assert events == ["launch"] * 3 + ["drain"]
     monkeypatch.undo()

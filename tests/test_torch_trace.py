@@ -24,8 +24,7 @@ torch = pytest.importorskip("torch")
 from cuda_satabsearch_tpu_torch import trace  # noqa: E402
 from cuda_satabsearch_tpu_torch.io.writer import format_database  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops import kernel_search  # noqa: E402
-from cuda_satabsearch_tpu_torch.ops.kernel_search import (  # noqa: E402
-    drain, launch_group)
+from cuda_satabsearch_tpu_torch.ops.search import Searcher  # noqa: E402
 from cuda_satabsearch_tpu_torch.session import (  # noqa: E402
     SearchSession, SessionConfig)
 from cuda_satabsearch_tpu_torch.stats.gumbel import score_stats  # noqa: E402
@@ -154,21 +153,22 @@ def test_search_records_its_tag_and_one_query(session):
 def test_d2h_bytes_counts_the_drained_arrays(session, lsoln, gather):
     groups = [[session.resolve_query(n) for n in names]
               for names in (["e0", "e2", "e3"], ["e4", "e5"])]
-    launched = [launch_group(qs, session.device_db, lorder=True, lsoln=lsoln,
-                             seed=5, query_tags=list(range(len(qs))),
-                             c_par=2, r_seq=1, backend="torch")
+    searcher = Searcher(session.db, session.device_db, maxstart=2, c_max=2,
+                        seed=5, backend="torch", gather=gather)
+    launched = [searcher.launch(qs, list(range(len(qs))), lorder=True,
+                                lsoln=lsoln)
                 for qs in groups]
     want = sum(s.nbytes + (m.nbytes if lsoln else 0)
-               for g in launched for _, _, s, m in g.outputs)
+               for g in launched for step in g.steps for s, m in [step.out])
     E = session.nentries
     assert want == 4 * E * sum(len(qs) * (1 + (8 if lsoln else 0)
                                           * (1 if qs[0].order <= 8 else 2))
                                for qs in groups)
     with trace.recording():
-        drain(launched, E, gather=gather)
+        searcher.drain(launched)
     (span,) = trace.spans()
     assert (span.name, span.nbytes) == ("kernel_search.drain", want)
-    drain(launched, E, gather=gather)  # nothing recorded when off
+    searcher.drain(launched)  # nothing recorded when off
     assert trace.spans() == [span]
 
 

@@ -20,6 +20,7 @@ from cuda_satabsearch_tpu_torch import session as tsession  # noqa: E402
 from cuda_satabsearch_tpu_torch.core import warmup as twarmup  # noqa: E402
 from cuda_satabsearch_tpu_torch.core.warmup import (  # noqa: E402
     SHAPE, add_one, warm_backend)
+from cuda_satabsearch_tpu_torch.ops import sa_kernel, warm  # noqa: E402
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -72,11 +73,14 @@ def test_warm_backend_is_a_no_op_on_the_cpu_in_both_packages(monkeypatch):
 
 
 def test_warm_backend_brings_up_three_parts(monkeypatch, capsys):
-    """On a card, warm_backend launches the start-up kernel, prepares the
-    SA kernel, then brings up what a search touches around the kernel:
-    the query and tags uploads, the side stream with its fork and join
-    events, and a drain, in order, and reports the three times on one
-    stderr line (stand-ins here for the parts that need a card)."""
+    """On a card, warm_backend launches the start-up kernel, then
+    ops/warm.warm_search prepares the SA kernel and brings up what a
+    search touches around the kernel through the search's own code: the
+    pinned staging of a query with its tag, its upload, the side stream
+    with its fork and join events (ops/sa_kernel.fork_join), the gather
+    of scores and maps into file order, and a drain, in order; the three
+    times are reported on one stderr line (stand-ins here for the parts
+    that need a card)."""
     calls = []
     dev = torch.device("meta")
 
@@ -91,7 +95,17 @@ def test_warm_backend_brings_up_three_parts(monkeypatch, capsys):
         def wait_event(self, event):
             calls.append(("wait", self.name, event.name))
 
-    class Tags:
+    class Buffer:
+        def __init__(self):
+            self.buf = self
+
+        def to(self, device, non_blocking):
+            calls.append(("upload", device, non_blocking))
+            return self
+
+        def __getitem__(self, rows):
+            return self
+
         def cpu(self):
             calls.append(("drain",))
 
@@ -99,34 +113,40 @@ def test_warm_backend_brings_up_three_parts(monkeypatch, capsys):
         calls.append(("add_one", x.device, tuple(x.shape)))
         return torch.ones(SHAPE)
 
-    def fake_pack(queries, n1r, device):
-        calls.append(("pack_queries", [q.order for q in queries], n1r,
-                      device))
+    def fake_staging(K, n1r, pin):
+        calls.append(("staging", K, n1r, pin))
+        return Buffer()
 
-    def fake_tags(tags, device):
-        calls.append(("upload_tags", list(tags), device))
-        return Tags()
+    def fake_stage(staging, queries, tags):
+        calls.append(("stage", [q.order for q in queries], list(tags)))
+
+    def fake_gather(order, outs):
+        calls.append(("to_file_order", order.device,
+                      [tuple(x.shape) for x in outs]))
 
     def fake_streams(index):
         calls.append(("launch_streams", index))
         return Stand("side"), Stand("fork"), Stand("join")
 
     monkeypatch.setattr(twarmup, "add_one", fake_add_one)
-    monkeypatch.setattr(twarmup, "prepare",
+    monkeypatch.setattr(warm, "prepare",
                         lambda d: calls.append(("prepare", d)))
-    monkeypatch.setattr(twarmup, "pack_queries", fake_pack)
-    monkeypatch.setattr(twarmup, "upload_tags", fake_tags)
-    monkeypatch.setattr(twarmup, "launch_streams", fake_streams)
+    monkeypatch.setattr(warm, "Staging", fake_staging)
+    monkeypatch.setattr(warm, "stage", fake_stage)
+    monkeypatch.setattr(warm, "to_file_order", fake_gather)
+    monkeypatch.setattr(sa_kernel, "launch_streams", fake_streams)
     monkeypatch.setattr(twarmup.torch.cuda, "current_stream",
                         lambda d: Stand("current"))
     assert warm_backend(dev) >= 0.0
     assert calls == [("add_one", dev, SHAPE), ("prepare", dev),
-                     ("pack_queries", [1], 8, dev),
-                     ("upload_tags", [0], dev), ("launch_streams", 0),
+                     ("staging", 1, 8, True), ("stage", [1], [0]),
+                     ("upload", dev, True), ("launch_streams", 0),
                      ("record", "fork", "current"),
                      ("wait", "side", "fork"),
                      ("record", "join", "side"),
-                     ("wait", "current", "join"), ("drain",)]
+                     ("wait", "current", "join"),
+                     ("to_file_order", dev, [(1, 32), (1, 32, 8)]),
+                     ("drain",)]
     (line,) = capsys.readouterr().err.splitlines()
     assert line.startswith("# start-up on meta: CUDA context and kernel "
                            "library ")
