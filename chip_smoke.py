@@ -21,15 +21,21 @@ DB.  Phases:
    queries of mixed orders, LORDER / LSOLN T/F, c_par 100 / 128, r_seq
    1 / 3, and c_par 128 x r_seq 32 (the r = 4096 split), whose
    launches split the restarts over CTAs (ops/sa_kernel.restart_split;
-   split launches counted);
+   split launches counted); the unsplit cases' small plans run each
+   chain on several lanes (ops/sa_kernel.chain_lanes; lane launches
+   counted, the lanes per launch class printed);
 2. the same cases on the seeded stream: the kernel derives every key
    from (seed, tag, file-order index) itself, the plain version takes
-   them from ops/rng.entry_keys: bitwise, split launches counted;
+   them from ops/rng.entry_keys: bitwise, split and lane launches
+   counted;
 3. CLI main path, d1ubia_ query vs the 586-entry DB at r=128: the
    reference's top 3, scores equal to the plain engine's on the card,
    at most two SA launches and the start-up kernel's launch; the
    profiler's device launches of one ``search``, none of them a torch
-   kernel before the first SA launch;
+   kernel before the first SA launch; queries of 25-40 SSEs against the
+   same DB launched as the main path launches them (wide class on 4
+   lanes per chain, narrow on 2): bitwise equal to the plain engine on
+   both streams;
 4. multiquery.input (8/13/101-SSE queries): batched search_many equals
    per-query search, bitwise;
 5. timings, in one process: one plan per bucket in series (the schedule
@@ -95,6 +101,7 @@ device or any phase fails.
 """
 
 import ast
+import collections
 import concurrent.futures
 import contextlib
 import functools
@@ -320,6 +327,15 @@ def phase0(dev, out):
     return err
 
 
+def case_lanes(cfg, q, plan) -> tuple:
+    """The lanes per chain of each launch class (wide first) of a kernel
+    case's launches (ops/sa_kernel.launch_shape)."""
+    from cuda_satabsearch_tpu_torch.ops.sa_kernel import launch_shape
+
+    return launch_shape(plan, cfg["K"], q[0].shape[1], c_par=cfg["c_par"],
+                        r_seq=cfg["r_seq"], lsoln=cfg["lsoln"])[1]
+
+
 def phase1(dev, out):
     from cuda_satabsearch_tpu_torch.ops import rng
     from cuda_satabsearch_tpu_torch.ops.common import slots_per_restart
@@ -328,8 +344,10 @@ def phase1(dev, out):
 
     urng = np.random.default_rng(7)
     worst, n, launches = 0, 0, 0
-    splits = sa_search.split_launches
+    splits, lanes = sa_search.split_launches, sa_search.lane_launches
+    by_case = collections.Counter()
     for ci, cfg, q, plan in kernel_cases(dev):
+        by_case[case_lanes(cfg, q, plan)] += 1
         n1r = q[0].shape[1]
         P = slots_per_restart(n1r)
         shape = (cfg["K"], plan.nentries, cfg["r_seq"], P, cfg["c_par"])
@@ -347,15 +365,19 @@ def phase1(dev, out):
             raise AssertionError(f"phase1 case {ci} {cfg}: max |diff| {err}")
         worst, n = max(worst, err), n + 1
     splits = sa_search.split_launches - splits
+    lanes = sa_search.lane_launches - lanes
     say(f"phase1 supplied stream, plan kernel == plain plan on the card: "
         f"{n} cases (plans of widths {sorted(set(itertools.chain(*PLAN_WIDTHS)))}"
         f", both classes, padding rows), max |diff| {worst} (tolerance 0: "
         f"bitwise); at most {launches} launches per plan, {splits} of the "
-        f"launches with their restarts split")
+        f"launches with their restarts split, {lanes} with lanes; cases by "
+        f"lanes per chain (wide, narrow): {dict(by_case)}")
     if launches != 2:
         raise AssertionError("a two-class plan did not take two launches")
     if not splits:
         raise AssertionError("no launch split its restarts")
+    if not lanes:
+        raise AssertionError("no launch ran a chain on several lanes")
     return worst
 
 
@@ -365,8 +387,10 @@ def phase2(dev, out):
     from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
 
     worst, n = 0, 0
-    splits = sa_search.split_launches
+    splits, lanes = sa_search.split_launches, sa_search.lane_launches
+    by_case = collections.Counter()
     for ci, cfg, q, plan in kernel_cases(dev):
+        by_case[case_lanes(cfg, q, plan)] += 1
         # tags beyond 2**31 too: the kernel takes their uint32 bits
         tags = [ci, 2 ** 31 + ci, 2 ** 32 + 7][:cfg["K"]]
         kw = dict(seed=1234 + ci, tags=tags, c_par=cfg["c_par"],
@@ -380,11 +404,16 @@ def phase2(dev, out):
             raise AssertionError(f"phase2 case {ci} {cfg}: max |diff| {err}")
         worst, n = max(worst, err), n + 1
     splits = sa_search.split_launches - splits
+    lanes = sa_search.lane_launches - lanes
     say(f"phase2 seeded stream, keys derived in the kernel == plain plan on "
         f"ops/rng.entry_keys' stream (ln_f32 on the card): {n} cases, max "
-        f"|diff| {worst} (tolerance 0: bitwise); {splits} split launches")
+        f"|diff| {worst} (tolerance 0: bitwise); {splits} split launches, "
+        f"{lanes} with lanes; cases by lanes per chain (wide, narrow): "
+        f"{dict(by_case)}")
     if not splits:
         raise AssertionError("no launch split its restarts")
+    if not lanes:
+        raise AssertionError("no launch ran a chain on several lanes")
     # ln u on the card vs on the CPU over every non-zero uniform
     # (k * 2**-23): where they differ, -c and the card may part ways
     grid = torch.arange(1, 2 ** 23, dtype=torch.float64).mul_(
@@ -454,7 +483,61 @@ def phase3(dev, out):
         f"{diff} (tolerance 0)")
     if diff:
         raise AssertionError("kernel and plain scores differ on the CLI path")
-    return diff
+    return max(diff, phase3_lanes(dev))
+
+
+def phase3_lanes(dev):
+    """Queries of 25-32 and 33-40 SSEs (both query mask widths) against
+    the 586-entry DB at r = 128 with LSOLN, as the main path launches
+    them: the wide class on 4 lanes per chain and the narrow one on 2
+    (ops/sa_kernel.launch_shape), scores and maps bitwise equal to the
+    plain engine on a supplied and on the seeded stream."""
+    from cuda_satabsearch_tpu_torch.ops import rng
+    from cuda_satabsearch_tpu_torch.ops.common import (round8,
+                                                       slots_per_restart)
+    from cuda_satabsearch_tpu_torch.ops.engine import search_plan_plain
+    from cuda_satabsearch_tpu_torch.ops.kernel_search import pack_queries
+    from cuda_satabsearch_tpu_torch.ops.sa_kernel import (launch_shape,
+                                                          sa_search)
+    from cuda_satabsearch_tpu_torch.session import (SearchSession,
+                                                    SessionConfig)
+
+    sess = SearchSession(DB586, SessionConfig(maxstart=128, device=str(dev)))
+    (plan,) = sess.device_db
+    urng = np.random.default_rng(17)
+    worst, seen = 0, []
+    for lo, hi in ((25, 32), (33, 40)):
+        name, n1 = next((nm, int(o)) for nm, o in zip(sess.db.names,
+                                                       sess.db.orders)
+                        if lo <= o <= hi)
+        n1r = round8(n1)
+        shape = launch_shape(plan, 1, n1r, c_par=128, r_seq=1, lsoln=True)
+        seen.append((name, n1, shape))
+        if shape != (1, (4, 2)):
+            raise AssertionError(f"{name} ({n1} SSEs): (S, lanes) {shape}, "
+                                 f"not (1, (4, 2))")
+        q = pack_queries([sess.resolve_query(name)], n1r, dev)
+        u = torch.from_numpy(urng.random(
+            (1, plan.nentries, 1, slots_per_restart(n1r), 128),
+            dtype=np.float32)).to(dev)
+        for kw in (dict(uniforms=rng.log_acc_slots(u, n1r).contiguous()),
+                   dict(seed=2 ** 31 - 5, tags=[n1])):
+            kw.update(c_par=128, r_seq=1, lorder=True, lsoln=True)
+            before = sa_search.launches, sa_search.lane_launches
+            got = sa_search(*q, plan, **kw)
+            torch.cuda.synchronize()
+            counts = (sa_search.launches - before[0],
+                      sa_search.lane_launches - before[1])
+            err = compare(got, search_plan_plain(*q, plan, **kw))
+            if counts != (2, 2) or err:
+                raise AssertionError(f"{name}: (launches, lane launches) "
+                                     f"{counts}, max |diff| {err}")
+            worst = max(worst, err)
+    say(f"phase3 lanes on the main path, 586 entries, r = 128, LSOLN, "
+        f"(query, SSEs, (S, (wide, narrow) lanes)) {seen}: kernel == plain "
+        f"engine on a supplied and the seeded stream, max |diff| {worst} "
+        f"(tolerance 0: bitwise), 2 launches and 2 lane launches each")
+    return worst
 
 
 def in_fresh_process(task: str) -> dict:

@@ -21,9 +21,19 @@
 // CTAs against ~1,320 narrow slots), grid z = S splits each chain's
 // restarts over S CTAs per (entry, query), split z running restarts
 // [z r_seq / S, (z + 1) r_seq / S) of all c_par chains
-// (sa_plan_kernel<EW, QW, true>); each split writes its best score,
+// (sa_plan_kernel<EW, QW, true, 1>); each split writes its best score,
 // its first maximal chain and that chain's map, and sa_split_reduce,
 // launched after it on the same stream, makes the entry's result.
+// Lanes: where an unsplit launch pair fits in one wave
+// (ops/sa_kernel.chain_lanes), a class may run each chain on G = 2 or
+// 4 adjacent lanes of one warp (sa_plan_kernel<EW, QW, false, G>,
+// blockDim = c_par x G).  Every lane holds the chain's whole state and
+// updates it alike; lane 0 writes the map plane.  Lane g draws slot
+// min(g, 2) of the next move (G = 2: slot g, and both the acceptance
+// slot), walks the mapped SSEs of rank = g (mod G) in the delta and the
+// initial score, and copies the map rows i = g (mod G) at a new max;
+// shuffles trade the draws and sum the integer partial scores, so every
+// chain runs the same states as at G = 1, bit for bit.
 // The entry's and the query's distances (bf16: every distance of the
 // packed DB and query is on the bf16 grid, io/pack.quantize_dmat, so
 // widening back to float is exact) and hi*8+lo codes are staged once in
@@ -39,11 +49,17 @@
 //
 // Bound.  An unsplit launch that fits in one wave lasts as long as its
 // longest chain's maxiter x r_seq dependent moves: on an H100 a move
-// takes ~4 us whether the CTA is alone on the card or shares it with
+// takes ~3-4 us whether the CTA is alone on the card or shares it with
 // the whole 586-entry DB.  So one query at r = 4096 (3,200 moves a
 // chain) leaves most of the card idle; split into many waves of short
 // CTAs, the launch runs at the card's throughput instead (13.5 -> 6.3
-// ms a query at S = 32).  Timed by
+// ms a query at S = 32).  At r = 128 (one restart) lanes shorten the
+// move where the SMs' warp schedulers idle: a class of fewer CTAs
+// than SMs (the 586-entry DB's 30 wide ones: 0.46 -> 0.32 ms alone at
+// G = 4), or long queries (n1r >= 24); where a class already gives each
+// SM ~4 CTAs, the work every lane repeats (window, pick, bookkeeping)
+// costs more scheduler cycles than the shared delta saves (n1r 16:
+// 0.47 -> 0.51 ms at G = 2).  Timed by
 // knocking parts out, the O(n1) delta's shared-memory reads (two
 // dependent levels per mapped SSE) take about half of a move, the
 // threefry draws about a tenth and the double-precision log less
@@ -52,8 +68,11 @@
 // thread with 0 spills (__launch_bounds__(128, 8); ptxas -v prints
 // both: 46-48; the split instantiations take (128, 10), which holds
 // them to the same 47-48 and 10 narrow CTAs per SM, where they would
-// take 54-56 and 9) and 40,480 B of shared memory per CTA at n1r 8, d2
-// 112, LSOLN, c_par 128 (sa_search_smem_bytes; 5 CTAs per SM).
+// take 54-56 and 9; the lane ones (128 G, 10 / G): 47-48 at G = 2, so
+// 5 CTAs of 256 threads per SM, 48-56 at G = 4; G = 8 timed slower than
+// G = 4 in every class and width, and is not built) and 40,480 B of
+// shared memory per CTA at n1r 8, d2 112, LSOLN, c_par 128
+// (sa_search_smem_bytes; 5 CTAs per SM), whatever G.
 //
 // Bitwise contract with the plain version and the JAX package: scores
 // are integers; (u - eps) * n and temp * ln u are single IEEE float ops
@@ -228,13 +247,51 @@ __device__ __forceinline__ const BucketDesc& block_bucket(
   return plan.b[bi];
 }
 
+// Sum of an int over the G lanes of a chain, on every one of them.
+template <int G>
+__device__ __forceinline__ int lane_sum(int x, unsigned gmask) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(gmask, x, off, G);
+  return x;
+}
+
+// Drop the lowest set bits of m that precede this lane's first one: the
+// lane's bits are those of rank = lane (mod G) among the chain's set
+// bits, `before` of which lie in earlier words (G a power of two).
+template <int G>
+__device__ __forceinline__ uint32_t lane_first(uint32_t m, int lane,
+                                               int before) {
+  const int skip = (lane - before) & (G - 1);
+#pragma unroll
+  for (int s = 0; s < G - 1; ++s)
+    if (s < skip) m &= m - 1;
+  return m;
+}
+
+// Drop the G - 1 set bits after the lowest one, which this lane just
+// took (m & (m - 1) is 0 once m is).
+template <int G>
+__device__ __forceinline__ uint32_t lane_next(uint32_t m) {
+#pragma unroll
+  for (int s = 0; s < G; ++s) m &= m - 1;
+  return m;
+}
+
 // EW / QW: mask words of the entry's / the query's SSEs (1 for <= 32).
 // SPLIT: grid z splits the restarts; the CTA writes its split's best
 // score and first maximal chain to part[2 p], part[2 p + 1] and that
 // chain's map to part_maps[p * n1r + i], p = (q * gridDim.x + x) *
 // gridDim.z + z, for sa_split_reduce.
-template <int EW, int QW, bool SPLIT>
-__global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
+// G: lanes per chain (1, 2 or 4; G > 1 only unsplit).  blockDim =
+// c_par x G; chain threadIdx.x / G runs on the G consecutive lanes of
+// one warp.  Every lane keeps the chain's whole state in registers and
+// updates it from the same values; lane 0 alone writes its map plane.
+// The lanes share out a move's draws and its delta, and the initial
+// score's and the LSOLN copy's loops, and sum by shuffles.
+template <int EW, int QW, bool SPLIT, int G>
+__global__ void __launch_bounds__(128 * G, G > 1 ? 10 / G : SPLIT ? 10 : 8)
+    sa_plan_kernel(
     const __grid_constant__ PlanDesc plan,
     const int8_t* __restrict__ qtypes, const uint8_t* __restrict__ qtab,
     const float* __restrict__ qdmat, const int* __restrict__ n1s, int n1r,
@@ -243,10 +300,18 @@ __global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
     int lsoln, SAParams p, int* __restrict__ out_scores,
     int* __restrict__ out_maps, int* __restrict__ part,
     int8_t* __restrict__ part_maps) {
+  static_assert(G == 1 || ((G == 2 || G == 4) && !SPLIT),
+                "lanes per chain: 1, or 2 or 4 unsplit");
   extern __shared__ __align__(16) unsigned char smem[];
   const int q = blockIdx.y;
-  const int c = threadIdx.x;
-  const int C = blockDim.x;
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const int c = tid / G;  // the chain
+  const int g = tid % G;  // its lane
+  const int C = T / G;    // chains
+  // the chain's lanes in its warp
+  [[maybe_unused]] const unsigned gmask = G == 1 ? 1u
+                                : ((1u << G) - 1u) << ((tid & 31) & -G);
 
   const BucketDesc& B = block_bucket(plan, blockIdx.x);
   const int e = blockIdx.x - B.first;
@@ -272,27 +337,27 @@ __global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
     const float4* ed4 = reinterpret_cast<const float4*>(B.dmat + eoff);
     __nv_bfloat162* sq2 = reinterpret_cast<__nv_bfloat162*>(s_qd);
     __nv_bfloat162* se2 = reinterpret_cast<__nv_bfloat162*>(s_ed);
-    for (int t = c; t < n1r * n1r / 4; t += C) {
+    for (int t = tid; t < n1r * n1r / 4; t += T) {
       const float4 v = qd4[t];
       sq2[2 * t] = __floats2bfloat162_rn(v.x, v.y);
       sq2[2 * t + 1] = __floats2bfloat162_rn(v.z, v.w);
     }
-    for (int t = c; t < d2 * d2 / 4; t += C) {
+    for (int t = tid; t < d2 * d2 / 4; t += T) {
       const float4 v = ed4[t];
       se2[2 * t] = __floats2bfloat162_rn(v.x, v.y);
       se2[2 * t + 1] = __floats2bfloat162_rn(v.z, v.w);
     }
     const uint4* qc16 = reinterpret_cast<const uint4*>(qtab + qoff);
     const uint4* ec16 = reinterpret_cast<const uint4*>(B.tab + eoff);
-    for (int t = c; t < n1r * n1r / 16; t += C)
+    for (int t = tid; t < n1r * n1r / 16; t += T)
       reinterpret_cast<uint4*>(s_qc)[t] = qc16[t];
-    for (int t = c; t < d2 * d2 / 16; t += C)
+    for (int t = tid; t < d2 * d2 / 16; t += T)
       reinterpret_cast<uint4*>(s_ec)[t] = ec16[t];
-    for (int t = c; t < n1r; t += C) s_qt[t] = qtypes[q * n1r + t];
+    for (int t = tid; t < n1r; t += T) s_qt[t] = qtypes[q * n1r + t];
   }
   const int n2 = B.n2[e];
   // per-type masks of the entry's SSEs j < n2
-  for (int t = c; t < NTYPES * EW; t += C) {
+  for (int t = tid; t < NTYPES * EW; t += T) {
     const int ty = t / EW, w = t % EW;
     const int8_t* et = B.types + static_cast<size_t>(e) * d2;
     uint32_t m = 0;
@@ -318,8 +383,8 @@ __global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
   }
 
   int maxscore = p.maxscore_init;
-  if (lsoln)
-    for (int i = 0; i < n1r; ++i) s_best[i * C] = -1;
+  if (lsoln)  // lane g keeps the rows i = g (mod G) of the best map
+    for (int i = g; i < n1r; i += G) s_best[i * C] = -1;
 
   // this CTA's restarts: all of them, or split z's share
   const int r_per = SPLIT ? r_seq / static_cast<int>(gridDim.z) : r_seq;
@@ -341,8 +406,33 @@ __global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
       const float u = uniform_at(rk0, rk1, static_cast<uint32_t>(s * C + c));
       return static_cast<float>(log(static_cast<double>(u)));  // ops/rng.ln_f32
     };
+    // a move's draws, slots base .. base + 2, into (move, candidate, ln
+    // acceptance); with lanes, lane g draws slot base + min(g, 2) (G = 2:
+    // slot base + g, and both slot base + 2) and the lanes trade them
+    auto draw_move = [&](int base, float& um, float& uc, float& la) {
+      if constexpr (G == 1) {
+        um = draw(base);
+        uc = draw(base + 1);
+        la = draw_log(base + 2);
+      } else if constexpr (G == 2) {
+        const float v = draw(base + g);
+        la = draw_log(base + 2);
+        um = __shfl_sync(gmask, v, 0, G);
+        uc = __shfl_sync(gmask, v, 1, G);
+      } else {
+        const float v = draw(base + min(g, 2));
+        const float lv = ur != nullptr
+                             ? v
+                             : static_cast<float>(log(static_cast<double>(v)));
+        um = __shfl_sync(gmask, v, 0, G);
+        uc = __shfl_sync(gmask, v, 1, G);
+        la = __shfl_sync(gmask, lv, 2, G);
+      }
+    };
 
-    for (int i = 0; i < n1r; ++i) s_map[i * C] = -1;
+    if constexpr (G > 1) __syncwarp(gmask);  // the last restart's reads
+    if (g == 0)
+      for (int i = 0; i < n1r; ++i) s_map[i * C] = -1;
     uint32_t used[EW], mapped[QW];
 #pragma unroll
     for (int w = 0; w < EW; ++w) used[w] = 0;
@@ -365,7 +455,7 @@ __global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
           }
         }
         if (found >= 0) {
-          s_map[i * C] = static_cast<int8_t>(found);
+          if (g == 0) s_map[i * C] = static_cast<int8_t>(found);
           set_bit(used, found);
           set_bit(mapped, i);
           cursor = found + 1;
@@ -375,13 +465,22 @@ __global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
       }
     }
 
-    // initial score: integer sum over mapped pairs i < k
+    if constexpr (G > 1) __syncwarp(gmask);  // lane 0's map
+
+    // initial score: integer sum over mapped pairs i < k (lanes: of the
+    // i of rank = g (mod G) among the mapped SSEs, summed over the lanes)
     int score = 0;
+    [[maybe_unused]] int seen = 0;  // mapped SSEs in the words before wi
     for (int wi = 0; wi < QW; ++wi) {
       uint32_t mi = word(mapped, wi);
+      if constexpr (G > 1) {
+        const int nw = __popc(mi);
+        mi = lane_first<G>(mi, g, seen);
+        seen += nw;
+      }
       while (mi) {
         const int i = 32 * wi + __ffs(mi) - 1;
-        mi &= mi - 1;
+        mi = lane_next<G>(mi);
         const int li = s_map[i * C];
         for (int wk = 0; wk < QW; ++wk) {
           uint32_t mk = word(mapped, wk) & ~low_bits(i + 1 - 32 * wk);
@@ -396,27 +495,20 @@ __global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
         }
       }
     }
+    if constexpr (G > 1) score = lane_sum<G>(score, gmask);
     if (score > maxscore) {
       maxscore = score;
       if (lsoln)
-        for (int i = 0; i < n1; ++i) s_best[i * C] = s_map[i * C];
+        for (int i = g; i < n1; i += G) s_best[i * C] = s_map[i * C];
     }
 
     float temp = p.temp0;
     float nx_move = 0.0f, nx_cand = 0.0f, nx_acc = 0.0f;
-    if (p.maxiter > 0) {
-      nx_move = draw(n1r);
-      nx_cand = draw(n1r + 1);
-      nx_acc = draw_log(n1r + 2);
-    }
+    if (p.maxiter > 0) draw_move(n1r, nx_move, nx_cand, nx_acc);
     for (int it = 0; it < p.maxiter; ++it) {
       const float u_move = nx_move, u_cand = nx_cand, ln_acc = nx_acc;
-      if (it + 1 < p.maxiter) {  // move it+1's draws, off the chain
-        const int base = n1r + 3 * (it + 1);
-        nx_move = draw(base);
-        nx_cand = draw(base + 1);
-        nx_acc = draw_log(base + 2);
-      }
+      if (it + 1 < p.maxiter)  // move it+1's draws, off the chain
+        draw_move(n1r + 3 * (it + 1), nx_move, nx_cand, nx_acc);
       const int ssei = static_cast<int>(__fmul_rn(__fsub_rn(u_move, p.eps), n1f));
 
       // candidate window (kernel.cu:1053-1083, with its quirks):
@@ -467,14 +559,21 @@ __global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
       }
       const int oldj = s_map[ssei * C];
 
-      // incremental delta over the mapped query SSEs k != ssei
+      // incremental delta over the mapped query SSEs k != ssei (lanes:
+      // of the k of rank = g (mod G) among them, summed over the lanes)
       int delta = 0;
+      [[maybe_unused]] int before = 0;  // such k in the words before w
       for (int w = 0; w < QW; ++w) {
         uint32_t m = word(mapped, w);
         if ((ssei >> 5) == w) m &= ~(1u << (ssei & 31));
+        if constexpr (G > 1) {
+          const int nw = __popc(m);
+          m = lane_first<G>(m, g, before);
+          before += nw;
+        }
         while (m) {
           const int k = 32 * w + __ffs(m) - 1;
-          m &= m - 1;
+          m = lane_next<G>(m);
           const int l = s_map[k * C];
           const float qd = widen(s_qd[k * n1r + ssei]);
           const int qc = s_qc[k * n1r + ssei];
@@ -487,19 +586,21 @@ __global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
         }
       }
 
+      if constexpr (G > 1) delta = lane_sum<G>(delta, gmask);
+
       // max tracking before acceptance
       const int newscore = score + delta;
       if (newscore > maxscore) {
         maxscore = newscore;
         if (lsoln)
-          for (int k = 0; k < n1; ++k)
+          for (int k = g; k < n1; k += G)
             s_best[k * C] = k == ssei ? static_cast<int8_t>(newj) : s_map[k * C];
       }
 
       // log-domain Metropolis acceptance
       if (static_cast<float>(delta) > __fmul_rn(temp, ln_acc)) {
         score = newscore;
-        s_map[ssei * C] = static_cast<int8_t>(newj);
+        if (g == 0) s_map[ssei * C] = static_cast<int8_t>(newj);
         if (oldj >= 0) clear_bit(used, oldj);
         if (newj >= 0) {
           set_bit(used, newj);
@@ -507,6 +608,7 @@ __global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
         } else {
           clear_bit(mapped, ssei);
         }
+        if constexpr (G > 1) __syncwarp(gmask);  // lane 0's map
       }
       temp = __fmul_rn(temp, p.alpha);
     }
@@ -517,9 +619,9 @@ __global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
   const size_t prow =
       (static_cast<size_t>(q) * gridDim.x + blockIdx.x) * gridDim.z +
       blockIdx.z;
-  s_red[c] = maxscore;
+  if (g == 0) s_red[c] = maxscore;
   __syncthreads();
-  if (c == 0) {
+  if (tid == 0) {
     int best = s_red[0], winner = 0;
     for (int t = 1; t < C; ++t) {
       if (s_red[t] > best) {
@@ -540,7 +642,7 @@ __global__ void __launch_bounds__(128, SPLIT ? 10 : 8) sa_plan_kernel(
   if (lsoln) {
     const int8_t* wbest =
         reinterpret_cast<const int8_t*>(smem + L.best) + s_red[C + 1];
-    for (int i = c; i < n1r; i += C) {
+    for (int i = tid; i < n1r; i += T) {
       if (SPLIT)
         part_maps[prow * n1r + i] = wbest[i * C];
       else
@@ -599,24 +701,36 @@ using KernelFn = void (*)(PlanDesc, const int8_t*, const uint8_t*,
                           SAParams, int*, int*, int*, int8_t*);
 
 // The instantiation for a launch class whose widest bucket is d2max.
-template <bool SPLIT>
+template <bool SPLIT, int G>
 KernelFn kernel_for(int d2max, int n1r) {
   if (d2max <= 32)
-    return n1r <= 32 ? sa_plan_kernel<1, 1, SPLIT>
-                     : sa_plan_kernel<1, 4, SPLIT>;
-  return n1r <= 32 ? sa_plan_kernel<4, 1, SPLIT>
-                   : sa_plan_kernel<4, 4, SPLIT>;
+    return n1r <= 32 ? sa_plan_kernel<1, 1, SPLIT, G>
+                     : sa_plan_kernel<1, 4, SPLIT, G>;
+  return n1r <= 32 ? sa_plan_kernel<4, 1, SPLIT, G>
+                   : sa_plan_kernel<4, 4, SPLIT, G>;
 }
 
-KernelFn kernel_for(int d2max, int n1r, bool split) {
-  return split ? kernel_for<true>(d2max, n1r) : kernel_for<false>(d2max, n1r);
+// ... split or unsplit at `lanes` lanes per chain; nullptr where there
+// is no such instantiation (lanes not 1, 2 or 4, or lanes > 1 split).
+KernelFn kernel_for(int d2max, int n1r, bool split, int lanes) {
+  if (split) return lanes == 1 ? kernel_for<true, 1>(d2max, n1r) : nullptr;
+  switch (lanes) {
+    case 1: return kernel_for<false, 1>(d2max, n1r);
+    case 2: return kernel_for<false, 2>(d2max, n1r);
+    case 4: return kernel_for<false, 4>(d2max, n1r);
+    default: return nullptr;
+  }
 }
 
 const KernelFn ALL_KERNELS[] = {
-    sa_plan_kernel<1, 1, false>, sa_plan_kernel<1, 4, false>,
-    sa_plan_kernel<4, 1, false>, sa_plan_kernel<4, 4, false>,
-    sa_plan_kernel<1, 1, true>,  sa_plan_kernel<1, 4, true>,
-    sa_plan_kernel<4, 1, true>,  sa_plan_kernel<4, 4, true>};
+    sa_plan_kernel<1, 1, false, 1>, sa_plan_kernel<1, 4, false, 1>,
+    sa_plan_kernel<4, 1, false, 1>, sa_plan_kernel<4, 4, false, 1>,
+    sa_plan_kernel<1, 1, true, 1>,  sa_plan_kernel<1, 4, true, 1>,
+    sa_plan_kernel<4, 1, true, 1>,  sa_plan_kernel<4, 4, true, 1>,
+    sa_plan_kernel<1, 1, false, 2>, sa_plan_kernel<1, 4, false, 2>,
+    sa_plan_kernel<4, 1, false, 2>, sa_plan_kernel<4, 4, false, 2>,
+    sa_plan_kernel<1, 1, false, 4>, sa_plan_kernel<1, 4, false, 4>,
+    sa_plan_kernel<4, 1, false, 4>, sa_plan_kernel<4, 4, false, 4>};
 
 }  // namespace
 
@@ -645,27 +759,31 @@ int sa_search_prepare(int device_max_smem) {
   return 0;
 }
 
-// CTAs of c_par threads per SM for a launch class whose widest bucket is
-// d2max (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into *blocks,
-// and the kernel's registers per thread and local (spill) bytes into
-// *regs and *local, for the unsplit instantiation or (split != 0) the
-// split one.  Returns the cudaError_t.
+// CTAs of c_par x lanes threads per SM for a launch class whose widest
+// bucket is d2max (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into
+// *blocks, and the kernel's registers per thread and local (spill)
+// bytes into *regs and *local, for the unsplit instantiation at `lanes`
+// lanes per chain or (split != 0, lanes 1) the split one.  Returns the
+// cudaError_t.
 int sa_search_occupancy(int d2max, int n1r, int c_par, int lsoln, int split,
-                        int* blocks, int* regs, int* local) {
-  const KernelFn fn = kernel_for(d2max, n1r, split != 0);
+                        int lanes, int* blocks, int* regs, int* local) {
+  const KernelFn fn = kernel_for(d2max, n1r, split != 0, lanes);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
   *local = static_cast<int>(attr.localSizeBytes);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, fn, c_par, sa_search_smem_bytes(n1r, d2max, c_par, lsoln)));
+      blocks, fn, c_par * lanes,
+      sa_search_smem_bytes(n1r, d2max, c_par, lsoln)));
 }
 
 // Launches one launch class of a plan on `stream`: grid (the buckets'
-// entries, K, splits), c_par threads, shared memory for the widest
-// bucket d2max; with splits > 1 (a power of two dividing r_seq) the
-// split instantiation, then sa_split_reduce on the same stream.
+// entries, K, splits), c_par x lanes threads (lanes per chain: 1, or 2
+// or 4 unsplit), shared memory for the widest bucket d2max; with
+// splits > 1 (a power of two dividing r_seq) the split instantiation,
+// then sa_split_reduce on the same stream.
 // Returns the cudaError_t of the launches (0 = success).
 // sa_search_prepare must have run on the device first.  `uniforms`
 // (supplied stream) or `tags` (in-kernel threefry from seed, tags and
@@ -680,9 +798,9 @@ int sa_search_launch(const PlanDesc* plan, int d2max, const int8_t* qtypes,
                      const float* uniforms, int ecols, int c_par, int r_seq,
                      int lorder, int lsoln, int maxiter, float temp0,
                      float alpha, float mxssed, float init_matchprob,
-                     float eps, int maxscore_init, int splits, int* part,
-                     int8_t* part_maps, int* out_scores, int* out_maps,
-                     void* stream) {
+                     float eps, int maxscore_init, int splits, int lanes,
+                     int* part, int8_t* part_maps, int* out_scores,
+                     int* out_maps, void* stream) {
   const SAParams p{maxiter, temp0, alpha, mxssed, init_matchprob, eps,
                    maxscore_init};
   int nblocks = 0;
@@ -691,7 +809,9 @@ int sa_search_launch(const PlanDesc* plan, int d2max, const int8_t* qtypes,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(nblocks), static_cast<unsigned>(K),
                   static_cast<unsigned>(splits));
-  kernel_for(d2max, n1r, splits > 1)<<<grid, c_par, smem, st>>>(
+  const KernelFn fn = kernel_for(d2max, n1r, splits > 1, lanes);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  fn<<<grid, c_par * lanes, smem, st>>>(
       *plan, qtypes, qtab, qdmat, n1s, n1r, seed, tags, uniforms, ecols,
       r_seq, lorder, lsoln, p, out_scores, out_maps, part, part_maps);
   cudaError_t err = cudaGetLastError();

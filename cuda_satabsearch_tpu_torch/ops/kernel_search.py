@@ -15,9 +15,11 @@ which exist for the TPU's compiles), each tile in at most two kernel
 launches, one per launch class (the narrow buckets, d2 <= 32, and the
 wide ones), its chains' restarts split over several CTAs where the
 launch would fill few waves of the card (ops/sa_kernel.restart_split),
-and gathers the outputs into file order on the device.  Nothing waits
-until ``Step.results``, so that a stream of groups is launched whole
-before its one drain (ops/search.py).  A CUDA graph is a captured
+each chain on several lanes where an unsplit launch pair fits in one
+wave (ops/sa_kernel.chain_lanes), and gathers the outputs into file
+order on the device.  Nothing waits until ``Step.results``, so that a
+stream of groups is launched whole before its one drain
+(ops/search.py).  A CUDA graph is a captured
 ``Step.launch``, replayed in its place.
 """
 
@@ -65,7 +67,7 @@ class LaunchClass:
     buckets: list  # [(DeviceBucket, first output column)]
     d2max: int  # the widest bucket: sizes the launch's shared memory
     desc: object  # the kernel's descriptor (ops/sa_kernel.descriptor)
-    # (n1r, c_par, lsoln) -> CTA slots of one launch
+    # (n1r, c_par, lsoln, lanes per chain) -> CTA slots of one launch
     # (ops/sa_kernel.class_slots)
     slots: dict = field(default_factory=dict)
 
@@ -320,7 +322,8 @@ class Step:
         self.event = torch.cuda.Event() if pin else None
         self.out = None  # the file-order scores and maps on the device
         self.replay = None  # the captured launch (``capture``)
-        self.launches = (0, 0)  # its SA launches, and the split ones
+        # its SA launches, the split ones and those with lanes
+        self.launches = (0, 0, 0)
 
     def launch(self, staged: torch.Tensor, tags) -> None:
         """The step's device work on the current stream, which a capture
@@ -372,6 +375,7 @@ class Step:
                 self.enqueue(self.replay, tags[0], self.K)
                 sa_search.launches += self.launches[0]
                 sa_search.split_launches += self.launches[1]
+                sa_search.lane_launches += self.launches[2]
             if self.event is not None:
                 self.event.record()
 
@@ -381,7 +385,8 @@ class Step:
         on (``staged`` and the step's buffers live as long): no span is
         recorded while capturing, and each replay, not the capture,
         counts the SA launches."""
-        before = sa_search.launches, sa_search.split_launches
+        before = (sa_search.launches, sa_search.split_launches,
+                  sa_search.lane_launches)
 
         def quiet():
             with trace.paused():
@@ -390,8 +395,10 @@ class Step:
         with device_guard(self.plan.device):
             self.replay = capture(quiet)
         self.launches = (sa_search.launches - before[0],
-                         sa_search.split_launches - before[1])
-        sa_search.launches, sa_search.split_launches = before
+                         sa_search.split_launches - before[1],
+                         sa_search.lane_launches - before[2])
+        (sa_search.launches, sa_search.split_launches,
+         sa_search.lane_launches) = before
 
     def results(self):
         """(``Plan.file_index``, scores int32 [K, W], maps int32 [K, W, n1r]

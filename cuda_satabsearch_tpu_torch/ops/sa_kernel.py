@@ -21,9 +21,12 @@ one kernel launch, the wide class on a side stream forked from the
 current one and joined back by an event, or the call raises.  Where
 the launches would fill few waves of the card's CTA slots, each class
 splits its chains' restarts over several CTAs (``restart_split``), and
-a small reduction kernel after it makes each entry's result.
-``sa_search.launches`` counts SA kernel launches,
-``sa_search.split_launches`` those of them that split.
+a small reduction kernel after it makes each entry's result; where an
+unsplit launch pair fits in one wave, each class runs a chain on
+several lanes (``chain_lanes``).  ``sa_search.launches`` counts SA
+kernel launches, ``sa_search.split_launches`` those of them that split
+and ``sa_search.lane_launches`` those that run a chain on more than one
+lane.
 """
 
 from __future__ import annotations
@@ -59,6 +62,16 @@ MAX_K = 65535  # queries of one launch: the grid's y extent
 # (``restart_split``): a launch's tail, about one CTA's time, is then a
 # few per cent of it (H100 timings by split and query count: PERF.md)
 SPLIT_WAVES = 16
+# lanes per chain that the kernel is built for (csrc/sa_search.cu
+# ALL_KERNELS; more than 1 only unsplit; 8 timed slower than 4 in every
+# class and query width on an H100: PERF.md)
+LANES = (1, 2, 4)
+# padded query SSEs per lane below which lanes do not pay in a class
+# that gives every SM a CTA or more (``chain_lanes``): there the warp
+# schedulers are about as busy as one lane's chains need, and a lane's
+# share of the delta has to outweigh the move's work that every lane
+# repeats (H100 timings by query width and lanes: PERF.md)
+LANE_SSES = 12
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -135,14 +148,14 @@ def load_library() -> Library:
         ctypes.c_uint32, P, P, I,  # seed, tags, uniforms, ecols
         I, I, I, I,  # c_par, r_seq, lorder, lsoln
         I, F, F, F, F, F, I,  # SAParams
-        I, P, P,  # splits, part, part_maps
+        I, I, P, P,  # splits, lanes, part, part_maps
         P, P, P]  # out_scores, out_maps, stream
     lib.sa_search_launch.restype = I
     lib.sa_search_prepare.argtypes = [I]  # device_max_smem
     lib.sa_search_prepare.restype = I
     lib.sa_search_smem_bytes.argtypes = [I, I, I, I]
     lib.sa_search_smem_bytes.restype = ctypes.c_size_t
-    lib.sa_search_occupancy.argtypes = [I, I, I, I, I, P, P, P]
+    lib.sa_search_occupancy.argtypes = [I, I, I, I, I, I, P, P, P]
     lib.sa_search_occupancy.restype = I
     lib.sa_search_error_string.argtypes = [I]
     lib.sa_search_error_string.restype = ctypes.c_char_p
@@ -183,33 +196,35 @@ def prepare(dev: torch.device) -> int:
 
 
 def occupancy(d2max: int, n1r: int, c_par: int, lsoln: bool,
-              split: bool = False) -> tuple[int, int, int]:
+              split: bool = False, lanes: int = 1) -> tuple[int, int, int]:
     """(CTAs per SM, registers per thread, local bytes per thread) of the
     kernel instantiation that runs a launch class whose widest bucket is
-    ``d2max``, unsplit or (``split``) split (on the current device, after
+    ``d2max``, unsplit at ``lanes`` lanes per chain (c_par x lanes
+    threads) or (``split``) split (on the current device, after
     ``prepare``)."""
     out = [ctypes.c_int() for _ in range(3)]
     err = load_library().lib.sa_search_occupancy(
-        d2max, n1r, c_par, int(lsoln), int(split),
+        d2max, n1r, c_par, int(lsoln), int(split), lanes,
         *(ctypes.byref(o) for o in out))
     if err != 0:
         raise cuda_error("SA kernel occupancy query", err)
     return tuple(o.value for o in out)
 
 
-def class_slots(plan, cls, n1r: int, c_par: int, lsoln: bool) -> int:
+def class_slots(plan, cls, n1r: int, c_par: int, lsoln: bool,
+                lanes: int = 1) -> int:
     """CTAs of one launch of ``cls`` (a launch class of ``plan``,
     ops/kernel_search.make_plan) that the card holds at once: its SMs
-    times the CTAs of the class's unsplit kernel resident on one SM
-    (``occupancy``), taken once per class and (n1r, c_par, lsoln); 0 off
-    a card."""
-    key = (n1r, c_par, lsoln)
+    times the CTAs of the class's unsplit kernel at ``lanes`` lanes per
+    chain resident on one SM (``occupancy``), taken once per class and
+    (n1r, c_par, lsoln, lanes); 0 off a card."""
+    key = (n1r, c_par, lsoln, lanes)
     if key not in cls.slots:
         slots = 0
         if plan.sms:
             with device_guard(plan.device):
-                slots = plan.sms * occupancy(cls.d2max, n1r, c_par,
-                                             lsoln)[0]
+                slots = plan.sms * occupancy(cls.d2max, n1r, c_par, lsoln,
+                                             lanes=lanes)[0]
         cls.slots[key] = slots
     return cls.slots[key]
 
@@ -235,6 +250,51 @@ def restart_split(plan, K: int, n1r: int, *, c_par: int, r_seq: int,
     while r_seq % (2 * split) == 0 and waves * split < SPLIT_WAVES:
         split *= 2
     return split
+
+
+def chain_lanes(plan, K: int, n1r: int, *, c_par: int, lsoln: bool,
+                split: int) -> tuple[int, ...]:
+    """Lanes per chain G of each launch class of ``plan`` (in its order)
+    for K queries padded to n1r whose launches split ``split`` ways
+    (``restart_split``): where they do not split, the narrow class's G
+    and then the wide class's, each the largest of ``LANES`` at which
+    the classes' K * entries / ``class_slots``(G) summed stays within
+    one wave of the card, the other class at the G chosen so far (1
+    before it is chosen), and at which the class's K * entries * G stays
+    within the card's SMs or each lane keeps ``LANE_SSES`` of the n1r.
+    All 1 where the launches split, off a card (both before any
+    occupancy query) and where they fill more than one wave at one
+    lane."""
+    lanes = [1] * len(plan.classes)
+
+    def fits() -> bool:
+        slots = [class_slots(plan, cls, n1r, c_par, lsoln, g)
+                 for cls, g in zip(plan.classes, lanes)]
+        return all(slots) and sum(
+            Fraction(K * cls.entries, m)
+            for cls, m in zip(plan.classes, slots)) <= 1
+
+    if split > 1 or not plan.sms or not fits():
+        return tuple(lanes)
+    for i in sorted(range(len(lanes)), key=lambda i: plan.classes[i].d2max):
+        ctas = K * plan.classes[i].entries
+        for g in LANES[::-1]:
+            lanes[i] = g
+            if g == 1 or ((ctas * g <= plan.sms or LANE_SSES * g <= n1r)
+                          and fits()):
+                break
+    return tuple(lanes)
+
+
+def launch_shape(plan, K: int, n1r: int, *, c_par: int, r_seq: int,
+                 lsoln: bool) -> tuple[int, tuple[int, ...]]:
+    """(S, lanes per chain of each launch class) of the SA launches of K
+    queries padded to n1r against ``plan``: ``restart_split``'s S and
+    ``chain_lanes``' lanes at that S."""
+    split = restart_split(plan, K, n1r, c_par=c_par, r_seq=r_seq,
+                          lsoln=lsoln)
+    return split, chain_lanes(plan, K, n1r, c_par=c_par, lsoln=lsoln,
+                              split=split)
 
 
 @functools.lru_cache(maxsize=None)
@@ -305,8 +365,9 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
     read from ``uniforms`` f32[K, E, r_seq, P, c_par].  On the CPU the
     plain version runs; on a CUDA device one kernel launch per launch
     class (at most two) is made, split as ``restart_split`` says (a
-    split launch is followed by its reduction kernel; the results are
-    bitwise those of the unsplit launch).  Returns (scores int32[K, E],
+    split launch is followed by its reduction kernel) and at the lanes
+    per chain ``chain_lanes`` gives (the results are bitwise those of the
+    unsplit launch at one lane per chain).  Returns (scores int32[K, E],
     maps int32[K, E, n1r] or None), E = plan.nentries in the plan's
     order.  ``seed`` must lie in [-2**31, 2**31) (ops/rng.check_seed)."""
     seed = check_seed(seed)
@@ -360,8 +421,8 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
             c_par, r_seq, int(lorder), int(lsoln), p.maxiter, p.temp0,
             p.alpha, p.mxssed, p.init_matchprob, p.eps, p.maxscore_init)
     outs = (scores.data_ptr(), maps.data_ptr() if maps is not None else None)
-    split = restart_split(plan, K, n1r, c_par=c_par, r_seq=r_seq,
-                          lsoln=lsoln)
+    split, lanes = launch_shape(plan, K, n1r, c_par=c_par, r_seq=r_seq,
+                                lsoln=lsoln)
     # a split launch's scratch (per split, its best score and winner,
     # and under LSOLN the winner's map), made on the current stream,
     # which waits for both classes before anything can reuse it
@@ -374,7 +435,7 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
     def launch(i, stream):
         cls, (part, part_maps) = plan.classes[i], scratch[i]
         err = lib.sa_search_launch(
-            ctypes.byref(cls.desc), cls.d2max, *args, split,
+            ctypes.byref(cls.desc), cls.d2max, *args, split, lanes[i],
             None if part is None else part.data_ptr(),
             None if part_maps is None else part_maps.data_ptr(), *outs,
             stream.cuda_stream)
@@ -382,6 +443,7 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
             raise cuda_error("SA kernel launch", err)
         sa_search.launches += 1
         sa_search.split_launches += split > 1
+        sa_search.lane_launches += lanes[i] > 1
 
     with device_guard(dev):
         current = torch.cuda.current_stream(dev)
@@ -395,3 +457,4 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
 
 sa_search.launches = 0
 sa_search.split_launches = 0
+sa_search.lane_launches = 0

@@ -2,6 +2,7 @@
 sa_search.cu), timed in turns in one process on one NVIDIA GPU.
 
     python3 scripts/torch_sa_kernel_ab.py
+    python3 scripts/torch_sa_kernel_ab.py --lanes
 
 Each variant is the kernel's source with one part rewritten, built with
 the port's nvcc flags into cuda_satabsearch_tpu_torch/_build/variants/
@@ -23,6 +24,16 @@ Times (CUDA events) on the 586-entry fixture DB with the d1ubia_ query
 at r = 128 (the full plan, and the plan of the one 80-wide entry alone:
 one CTA, the latency of one chain) and the d2phlb1 query at r = 4096,
 in the order base, variants..., variants reversed, base.
+
+``--lanes`` times the kernel as it is at each number of lanes per chain
+(``sa_kernel.LANES``; ``sa_kernel.chain_lanes`` stubbed to give it):
+one 586-entry query at r = 128, LSOLN on, in-kernel draws, against the
+launch pair (narrow G 1, 2 x wide G 1, 2, 4) and against each
+launch class alone (every G), for a query of 16 and one of 56 padded
+SSEs; every G equals G = 1 bitwise (scores and maps).  Each instantiation's
+CTAs per SM, registers and local bytes, and the rule's own choice, are
+printed beside the times (CUDA events, 50 launches, turns forward then
+reversed, twice).
 """
 
 import ctypes
@@ -37,28 +48,20 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops import sa_kernel  # noqa: E402
+from cuda_satabsearch_tpu_torch.ops.common import round8  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops.kernel_search import (  # noqa: E402
     make_plan, pack_queries)
 from cuda_satabsearch_tpu_torch.session import (  # noqa: E402
     SearchSession, SessionConfig)
 
 AHEAD = """      const float u_move = nx_move, u_cand = nx_cand, ln_acc = nx_acc;
-      if (it + 1 < p.maxiter) {  // move it+1's draws, off the chain
-        const int base = n1r + 3 * (it + 1);
-        nx_move = draw(base);
-        nx_cand = draw(base + 1);
-        nx_acc = draw_log(base + 2);
-      }"""
-NO_AHEAD = """      const int base0 = n1r + 3 * it;
-      const float u_move = draw(base0), u_cand = draw(base0 + 1);
-      const float ln_acc = draw_log(base0 + 2);"""
+      if (it + 1 < p.maxiter)  // move it+1's draws, off the chain
+        draw_move(n1r + 3 * (it + 1), nx_move, nx_cand, nx_acc);"""
+NO_AHEAD = """      float u_move, u_cand, ln_acc;
+      draw_move(n1r + 3 * it, u_move, u_cand, ln_acc);"""
 AHEAD_NOBRANCH = """      const float u_move = nx_move, u_cand = nx_cand, ln_acc = nx_acc;
-      {
-        const int base = n1r + 3 * min(it + 1, p.maxiter - 1);
-        nx_move = draw(base);
-        nx_cand = draw(base + 1);
-        nx_acc = draw_log(base + 2);
-      }"""
+      draw_move(n1r + 3 * min(it + 1, p.maxiter - 1), nx_move, nx_cand,
+                nx_acc);"""
 FNS = "newj = 32 * w + static_cast<int>(__fns(cand[w], 0, rank + 1));"
 POPC = """{
             uint32_t m = cand[w];
@@ -138,10 +141,106 @@ def build(sources: dict) -> dict:
     return libs
 
 
+def lanes_probe() -> int:
+    """``--lanes`` (module docstring)."""
+    lib = sa_kernel.load_library()
+    for ln in lib.log.splitlines():
+        if "registers" in ln or "spill" in ln or "Function prop" in ln:
+            print(f"ptxas: {ln.strip()}", flush=True)
+    dev = torch.device("cuda", 0)
+    sess = SearchSession(chip_smoke.DB586, SessionConfig(maxstart=128,
+                                                         device=str(dev)))
+    (full,) = sess.device_db
+    wide, narrow = (make_plan([b for b, _ in cls.buckets])
+                    for cls in full.classes)
+    assert [c.d2max > 32 for c in full.classes] == [True, False]
+    by_width = {}
+    for name, order in zip(sess.db.names, sess.db.orders):
+        by_width.setdefault(round8(int(order)), []).append(name)
+    queries = {}  # (width, name) -> packed query
+    for width, names in sorted(by_width.items()):
+        for name in names[:2]:
+            queries[(width, name)] = pack_queries(
+                [sess.resolve_query(name)], width, dev)
+    real = sa_kernel.chain_lanes
+    for width in sorted(by_width):
+        rule = sa_kernel.launch_shape(full, 1, width, c_par=128, r_seq=1,
+                                      lsoln=True)[1]
+        print(f"n1r {width} ({len(by_width[width])} DB entries): the rule "
+              f"gives (wide, narrow) = {rule}", flush=True)
+        for cls in full.classes:
+            print(f"  d2 {cls.d2max} ({cls.entries} CTAs): (CTAs per SM, "
+                  f"registers, local bytes) by G " + ", ".join(
+                      f"{g}: {sa_kernel.occupancy(cls.d2max, width, 128, True, lanes=g)}"
+                      for g in sa_kernel.LANES), flush=True)
+
+    def search(q, plan, lanes):
+        sa_kernel.chain_lanes = lambda *a, **k: lanes
+        try:
+            return sa_kernel.sa_search(*q, plan, seed=2 ** 31 - 5, tags=[3],
+                                       c_par=128, r_seq=1, lorder=True,
+                                       lsoln=True)
+        finally:
+            sa_kernel.chain_lanes = real
+
+    runs = {}
+    for (width, name), q in queries.items():
+        for gn in (1, 2):
+            for gw in sa_kernel.LANES:
+                runs[(width, name, "pair", gn, gw)] = (q, full, (gw, gn))
+    for (width, name), q in queries.items():
+        if width in (16, 56) and name == by_width[width][0]:
+            for g in sa_kernel.LANES:
+                runs[(width, name, "narrow", g, 0)] = (q, narrow, (g,))
+                runs[(width, name, "wide", 0, g)] = (q, wide, (g,))
+    ref = {}
+    for key, (q, plan, lanes) in runs.items():
+        got = search(q, plan, lanes)
+        torch.cuda.synchronize()
+        base = ref.setdefault(key[:3], search(q, plan, (1,) * len(lanes)))
+        if not (torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])):
+            raise SystemExit(f"lanes {lanes} differ from G = 1 on {key}")
+    print(f"every G == G 1 bitwise on {len(runs)} runs (scores and maps)",
+          flush=True)
+    order = list(runs)
+    times = {}
+    for key in order + order[::-1] + order + order[::-1]:
+        q, plan, lanes = runs[key]
+        times.setdefault(key, []).append(
+            chip_smoke.cuda_ms(lambda: search(q, plan, lanes), 30))
+    print(chip_smoke.card_line())
+    med = {}
+    for key in order:
+        width, name, what, gn, gw = key
+        t = sorted(times[key])
+        med[key] = (t[1] + t[2]) / 2
+        print(f"n1r {width} {name} {what:6s} narrow G {gn} wide G {gw}: "
+              f"median {med[key]:.4f} ms "
+              f"({' / '.join(f'{x:.4f}' for x in times[key])})")
+    # each pair's time as a share of (1, 1), and the DB-weighted mean
+    # (the interactive cell draws its queries from the DB's entries)
+    total = sum(len(v) for v in by_width.values())
+    for gn in (1, 2):
+        for gw in sa_kernel.LANES:
+            mean = base = 0.0
+            for (width, name) in queries:
+                w = len(by_width[width]) / min(2, len(by_width[width]))
+                mean += w * med[(width, name, "pair", gn, gw)] / total
+                base += w * med[(width, name, "pair", 1, 1)] / total
+            print(f"narrow G {gn} wide G {gw}: DB-weighted mean "
+                  f"{mean:.4f} ms ({100 * (mean / base - 1):+.1f} % on "
+                  f"(1, 1)); by width " + ", ".join(
+                      f"{width}: {100 * (med[(width, name, 'pair', gn, gw)] / med[(width, name, 'pair', 1, 1)] - 1):+.1f} %"
+                      for width, name in queries))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--lanes"]:
+        return lanes_probe()
     src = sa_kernel.SOURCES[0].read_text()
     design, knock = variants(src)
     libs = build({**design, **knock})

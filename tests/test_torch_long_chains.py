@@ -138,7 +138,7 @@ def test_the_enqueue_span_carries_the_plans_grids_and_chain(db, sess,
 
 
 def fake_occupancy(calls):
-    def occupancy(d2max, n1r, c_par, lsoln):
+    def occupancy(d2max, n1r, c_par, lsoln, lanes=1):
         calls.append((d2max, n1r, c_par, lsoln))
         return (3 if d2max > 32 else 7) + (n1r > 8) + lsoln, 48, 0
     return occupancy

@@ -166,7 +166,7 @@ def test_ties_go_to_the_lowest_chain_then_the_lowest_split(sess, split):
 
 
 def fake_occupancy(calls):
-    def occupancy(d2max, n1r, c_par, lsoln, split=False):
+    def occupancy(d2max, n1r, c_par, lsoln, split=False, lanes=1):
         calls.append((d2max, n1r, c_par, lsoln))
         return (5 if d2max > 32 else 10), 48, 0
     return occupancy
@@ -271,7 +271,7 @@ def test_a_replay_adds_its_captures_split_launches(on_a_card, monkeypatch):
         capturing.pop()
         return fn
 
-    counted.launches = counted.split_launches = 0
+    counted.launches = counted.split_launches = counted.lane_launches = 0
     monkeypatch.setattr(kernel_search, "sa_search", counted)
     maxiter2 = dataclasses.replace(DEFAULTS, maxiter=2)
     # 2 chains of 2 restarts in order, on the kernel's wrapper
@@ -282,7 +282,7 @@ def test_a_replay_adds_its_captures_split_launches(on_a_card, monkeypatch):
     for _ in range(2):  # a key's second search captures its graph
         searcher.search(q, 0, lorder=True, lsoln=False)
     (g,) = searcher.graphs.values()
-    assert g.steps[0].launches == (2, 2)
+    assert g.steps[0].launches == (2, 2, 0)
     assert (counted.launches, counted.split_launches) == (0, 0)
     for _ in range(3):
         searcher.search(q, 0, lorder=True, lsoln=False)

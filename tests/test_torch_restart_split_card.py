@@ -9,8 +9,8 @@
   launches and nothing else.
 * The graph path at 4,096 restarts: a key's replays equal an eager
   session's searches, and each replay adds its captured split launches.
-* ptxas reports no spill for any instantiation (the kernel's source
-  compiled here with the library's nvcc flags).  The unsplit
+* ptxas reports no spill for any one-lane instantiation (the kernel's
+  source compiled here with the library's nvcc flags).  The unsplit
   instantiations' CTAs per SM, registers and local bytes
   (``sa_kernel.occupancy``) equal the parent commit's, pinned below from
   an NVIDIA H100 80GB HBM3; the split ones hold as many CTAs per SM in
@@ -167,11 +167,11 @@ def test_instantiations_keep_their_resources(card, tmp_path):
          str(tmp_path / "sa_search.o"), str(sa_kernel.SOURCES[0])],
         capture_output=True, text=True, check=True)
     ptxas = log.stdout + log.stderr
-    regs = re.findall(r"sa_plan_kernelILi(\d)ELi(\d)ELb(\d)E.*?\n.*?"
+    regs = re.findall(r"sa_plan_kernelILi(\d)ELi(\d)ELb(\d)ELi1E.*?\n.*?"
                       r"(\d+) bytes spill stores, (\d+) bytes spill loads"
                       r".*?\n.*?Used (\d+) registers", ptxas)
     print(f"\n{card}: ptxas (EW, QW, split, spill stores, loads, "
-          f"registers): {regs}", end="")
+          f"registers) at one lane per chain: {regs}", end="")
     assert len(regs) == 8
     assert all(r[3:5] == ("0", "0") and int(r[5]) <= 48 for r in regs)
     sa_kernel.prepare(torch.device("cuda", 0))

@@ -278,7 +278,7 @@ def test_counters_count_captures_replays_and_launches(dbfile, monkeypatch):
         counted.launches += len(args[4].classes) * cap.capturing
         return real(*args, **kw)
 
-    counted.launches = counted.split_launches = 0
+    counted.launches = counted.split_launches = counted.lane_launches = 0
     monkeypatch.setattr(kernel_search, "sa_search", counted)
     sess = session(dbfile)
     cap = attach(sess)
