@@ -347,19 +347,19 @@ class Step:
         self.out = to_file_order(plan.order, (s, m), self.host)
 
     def enqueue(self, run, tag: int, K: int):
-        """``run()`` in a ``kernel_search.enqueue`` span that carries the
-        figures of the SA launches that K of the step's queries make
-        (``launch_figures``)."""
+        """``run()`` in a ``kernel_search.enqueue`` span of K queries that
+        carries the figures of the SA launches that K of the step's
+        queries make (``launch_figures``) and their n1r."""
         sp = trace.begin("kernel_search.enqueue", tag, K)
         figures = trace.NO_FIGURES
         try:
             out = run()
             if sp is not None:
                 kw = self.kw
-                figures = launch_figures(
+                figures = (*launch_figures(
                     self.plan, K, self.n1r, c_par=kw["c_par"],
                     r_seq=kw["r_seq"], lsoln=kw["lsoln"],
-                    maxiter=kw["params"].maxiter)
+                    maxiter=kw["params"].maxiter), self.n1r)
             return out
         finally:
             trace.end(sp, 0, figures)

@@ -21,10 +21,12 @@ synchronisation, event or copy on the device.  One thread records.
 
 Each ``kernel_search.drain`` span carries, in ``nbytes``, the bytes of
 scores and maps that the drain brought to the host.  Each
-``kernel_search.enqueue`` span carries the figures of the SA launches it
-made (ops/kernel_search.launch_figures): ``ctas``, the CTAs of their
-grids; ``cta_slots``, for each launch the card's SMs times the CTAs of
-its launch class resident on one SM, summed (0 off a card); and
+``kernel_search.enqueue`` span names the query tile it launched, its
+queries K in ``queries`` and their padded order in ``n1r``, and carries
+the figures of the SA launches it made (ops/kernel_search.launch_figures):
+``ctas``, the CTAs of their grids, K x the plan's columns x S;
+``cta_slots``, for each launch the card's SMs times the CTAs of its
+launch class resident on one SM, summed (0 off a card); and
 ``chain_moves``, maxiter x r_seq / S, the dependent moves of a chain in
 one CTA (S the launches' restart split, ops/sa_kernel.restart_split).
 
@@ -44,7 +46,8 @@ from typing import NamedTuple
 from torch.autograd import profiler as _profiler
 
 BOUND = 1 << 20  # spans kept in memory
-NO_FIGURES = (0, 0, 0)  # (ctas, cta_slots, chain_moves): no SA launches
+# (ctas, cta_slots, chain_moves, n1r): no SA launches
+NO_FIGURES = (0, 0, 0, 0)
 
 # the span names of the search path, from the entry point down
 SPANS = ("session.resolve_query", "session.search", "session.search_many",
@@ -66,6 +69,7 @@ class Span(NamedTuple):
     ctas: int = 0  # CTAs in their grids
     cta_slots: int = 0  # SMs x resident CTAs per SM of each, summed
     chain_moves: int = 0  # maxiter x r_seq / S: a chain's moves in one CTA
+    n1r: int = 0  # the padded order of the tile's queries
 
 
 class _Recorder:
@@ -74,7 +78,7 @@ class _Recorder:
         self.paused = 0  # depth of paused() blocks
         # closed spans as plain tuples, which the collector need not track:
         # (name, start_ns, sid, parent, request, tag, queries, end_ns, nbytes,
-        # ctas, cta_slots, chain_moves)
+        # ctas, cta_slots, chain_moves, n1r)
         self.closed: list[tuple] = []
         self.dropped = 0
         self.stack: list[tuple] = []  # the open spans' tokens
@@ -105,8 +109,8 @@ def begin(name: str, tag: int = -1, queries: int = 0):
 
 def end(token, nbytes: int = 0, figures: tuple = NO_FIGURES) -> None:
     """Close the span ``begin`` returned (a no-op for None), with its
-    ``nbytes`` and its launch ``figures`` (ctas, cta_slots,
-    chain_moves)."""
+    ``nbytes`` and its launch ``figures`` (ctas, cta_slots, chain_moves,
+    n1r)."""
     if token is None:
         return
     t = time.time_ns()

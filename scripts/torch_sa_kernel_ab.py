@@ -3,6 +3,7 @@ sa_search.cu), timed in turns in one process on one NVIDIA GPU.
 
     python3 scripts/torch_sa_kernel_ab.py
     python3 scripts/torch_sa_kernel_ab.py --lanes
+    python3 scripts/torch_sa_kernel_ab.py --groups [SEED]
 
 Each variant is the kernel's source with one part rewritten, built with
 the port's nvcc flags into cuda_satabsearch_tpu_torch/_build/variants/
@@ -34,12 +35,31 @@ SSEs; every G equals G = 1 bitwise (scores and maps).  Each instantiation's
 CTAs per SM, registers and local bytes, and the rule's own choice, are
 printed beside the times (CUDA events, 50 launches, turns forward then
 reversed, twice).
+
+``--groups`` takes the kernel as it is through one list of the
+benchmark cell ``astral14291_r4096.query200`` (the seed's 14,291-entry
+DB made by ``satbench.deploy.prepare``, the seed's first window list of
+``satbench.gen.Traffic``, r = 4096, LORDER on, LSOLN off).  It searches
+the list once inside ``trace.recording()`` and prints, per
+``kernel_search.enqueue`` span, the tile's n1r, queries K, restart split
+S = ``ctas`` / (K x the plan's entries), lanes
+(``sa_kernel.launch_shape``) and waves = ``ctas`` / ``cta_slots``.
+Then each round8 group of the list is searched alone (``search_many``
+of its queries, host wall, two turns): ms, Mit/s and the share of
+``satbench.bound``'s least time.  Each one-query group is timed split
+as the rule gives it and unsplit (``sa_kernel.restart_split`` stubbed
+to 1) in turns, three each, under one tag, and the two must agree
+bitwise.  Last, the
+list's ``score_stats`` (norm2, z, p, as the benchmark's program takes
+them) are timed in its ``stats.score_stats`` spans and twice more over
+the same scores.
 """
 
 import ctypes
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -235,12 +255,127 @@ def lanes_probe() -> int:
     return 0
 
 
+def groups_probe(seed: int) -> int:
+    """``--groups`` (module docstring)."""
+    import numpy as np
+
+    from cuda_satabsearch_tpu_torch import trace
+    from cuda_satabsearch_tpu_torch.stats.gumbel import score_stats
+    from satbench import bound, deploy
+    from satbench.cells import load_cell
+    from satbench.gen import Traffic
+
+    cell = load_cell("astral14291_r4096.query200")
+    maxstart, maxiter = cell.config["maxstart"], cell.config["maxiter"]
+    dep = deploy.prepare(cell.config_name, cell.config, seed)
+    index = dep.index
+    sess = SearchSession(str(dep.path), SessionConfig(
+        maxstart=maxstart, seed=seed % 2 ** 31))
+    (plan,) = sess.device_db
+    kw = sess.searcher.kw
+    columns = plan.nentries
+    E = len(index.names)
+    picks = Traffic(cell.traffic, index.orders, seed).next_call()
+    qs = [sess.resolve_query(index.names[i]) for i in picks]
+    print(f"{cell.name} seed {seed}: {len(qs)} queries, {E} entries, "
+          f"r = {maxstart}, classes (d2max, entries) "
+          f"{[(c.d2max, c.entries) for c in plan.classes]}", flush=True)
+
+    trace.clear()
+    with trace.recording():
+        t0 = time.perf_counter()
+        results = sess.search_many(qs, lorder=True, lsoln=False)
+        wall = time.perf_counter() - t0
+        for q, r in zip(qs, results):
+            score_stats(r.scores, q.order, r.orders)
+    spans = trace.spans()
+    its = len(qs) * E * maxstart * maxiter
+    print(f"the list, first search: {wall:.3f} s, {its / wall / 1e6:.1f} "
+          "Mit/s", flush=True)
+    print("n1r K S lanes waves (one line per enqueue span)")
+    for s in spans:
+        if s.name != "kernel_search.enqueue":
+            continue
+        S, lanes = sa_kernel.launch_shape(plan, s.queries, s.n1r,
+                                          c_par=kw["c_par"],
+                                          r_seq=kw["r_seq"], lsoln=False)
+        assert s.ctas == s.queries * columns * S, (s, S, columns)
+        print(f"{s.n1r} {s.queries} {S} {lanes} "
+              f"{s.ctas / s.cta_slots:.2f}", flush=True)
+    stats_ms = [(s.end_ns - s.start_ns) / 1e6 for s in spans
+                if s.name == "stats.score_stats"]
+
+    groups = {}
+    for q in qs:
+        groups.setdefault(round8(q.order), []).append(q)
+    card = torch.cuda.get_device_name(0)
+    print(chip_smoke.card_line())
+    print("n1r K alone ms (two turns) Mit/s share of the bound")
+    for n1r, group in sorted(groups.items()):
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sess.search_many(group, lorder=True, lsoln=False)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        n1s = [q.order for q in group]
+        least = bound.bound_s(bound.search_ops(n1s, E, maxstart, maxiter),
+                              bound.search_bytes(n1s, index.orders, False),
+                              card)
+        best = min(ms)
+        share = "n/a" if least is None else f"{100e3 * least / best:.1f} %"
+        print(f"{n1r} {len(group)} {ms[0]:.1f} / {ms[1]:.1f} "
+              f"{len(group) * E * maxstart * maxiter / best / 1e3:.1f} "
+              f"{share}", flush=True)
+
+    real, searcher = sa_kernel.restart_split, sess.searcher
+    unsplit = lambda *a, **k: 1  # noqa: E731
+    for n1r, group in sorted(groups.items()):
+        if len(group) != 1:
+            continue
+        S = sa_kernel.launch_shape(plan, 1, n1r, c_par=kw["c_par"],
+                                   r_seq=kw["r_seq"], lsoln=False)[0]
+        times, scores = {"split": [], "unsplit": []}, {}
+        for _ in range(3):
+            for name, rule in (("split", real), ("unsplit", unsplit)):
+                sa_kernel.restart_split = rule
+                try:
+                    t0 = time.perf_counter()
+                    (res,) = searcher.drain([searcher.launch(
+                        group, [2 ** 20], lorder=True, lsoln=False)])[0]
+                    times[name].append(1e3 * (time.perf_counter() - t0))
+                finally:
+                    sa_kernel.restart_split = real
+                scores.setdefault(name, res.scores)
+        if not np.array_equal(scores["split"], scores["unsplit"]):
+            raise SystemExit(f"n1r {n1r}: split scores differ from unsplit")
+        print(f"single n1r {n1r} (order {group[0].order}) S {S}: split "
+              f"{' / '.join(f'{t:.1f}' for t in times['split'])} ms, "
+              f"unsplit "
+              f"{' / '.join(f'{t:.1f}' for t in times['unsplit'])} ms, "
+              "scores equal", flush=True)
+
+    again = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for q, r in zip(qs, results):
+            score_stats(r.scores, q.order, r.orders)
+        again.append((time.perf_counter() - t0) * 1e3 / len(qs))
+    print(f"score_stats ms a query: in the list's spans "
+          f"{sum(stats_ms) / len(qs):.4f} (first {stats_ms[0]:.4f}, median "
+          f"{float(np.median(stats_ms)):.4f}); over the same scores again "
+          f"{again[0]:.4f}, {again[1]:.4f}", flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     if sys.argv[1:] == ["--lanes"]:
         return lanes_probe()
+    if sys.argv[1:2] == ["--groups"]:
+        return groups_probe(int(sys.argv[2]) if len(sys.argv) > 2
+                            else 3100002031)
     src = sa_kernel.SOURCES[0].read_text()
     design, knock = variants(src)
     libs = build({**design, **knock})

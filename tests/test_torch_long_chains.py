@@ -13,7 +13,8 @@ figures of the ``kernel_search.enqueue`` span, on the CPU.
   per SM (``sa_kernel.occupancy``, stubbed here), queried once per class
   and key and never while nothing records; 0 off a card.  A replayed
   graph's enqueue span carries the figures of the launch it captured.
-* Spans that nothing gave figures carry 0.
+* Spans that nothing gave figures carry 0; an enqueue span carries its
+  tile's n1r.
 
 The figures are held on the card in tests/test_torch_long_chains_card.py.
 """
@@ -217,13 +218,13 @@ def test_spans_without_launches_carry_no_figures(db, sess):
         trace.end(trace.begin("other"))
         trace.end(trace.begin("bytes"), 64)
         sess.search(sess.resolve_query(db[1].names[0]), lsoln=False)
-    trace.end(None, 0, (1, 2, 3))  # a no-op while nothing records
+    trace.end(None, 0, (1, 2, 3, 4))  # a no-op while nothing records
     spans = trace.spans()
-    assert trace.Span("x", 0, 1, 0, -1, 0, -1, 0, 0)[-3:] == (0, 0, 0)
+    assert trace.Span("x", 0, 1, 0, -1, 0, -1, 0, 0)[-4:] == (0, 0, 0, 0)
     for s in spans:
-        figures = (s.ctas, s.cta_slots, s.chain_moves)
+        figures = (s.ctas, s.cta_slots, s.chain_moves, s.n1r)
         if s.name == "kernel_search.enqueue":
-            assert figures[0] > 0 and figures[2] > 0
+            assert figures[0] > 0 and figures[2] > 0 and figures[3] > 0
         else:
-            assert figures == (0, 0, 0)
+            assert figures == (0, 0, 0, 0)
     assert [s.nbytes for s in spans[:2]] == [0, 64]

@@ -1,9 +1,11 @@
 """On the card (skipped elsewhere): the SA kernel's restart split.
 
 * At 4,096 restarts (128 chains x 32 in order) and at 256 (x 2), LSOLN
-  off and on, on the 586-entry DB: one query searched alone, which
-  splits (``sa_kernel.restart_split``: a query fills under half a wave
-  of the card), equals bit for bit its row of one 64-query
+  off and on, on the 586-entry DB and on the 14,291-entry DB of the
+  ``astral14291_r4096`` configuration (the seed's file, made by
+  ``satbench.deploy.prepare``): one query searched alone, which splits
+  (``sa_kernel.restart_split``: a query fills under ``SPLIT_WAVES``
+  waves of the card), equals bit for bit its row of one 64-query
   ``search_many`` of the same width, which does not split: scores, and
   maps under LSOLN.  ``sa_search.split_launches`` counts the split
   launches and nothing else.
@@ -22,9 +24,11 @@ imports):
     python3 -m pytest --noconftest -m card -s tests/test_torch_restart_split_card.py
 """
 
+import json
 import os
 import re
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,11 +38,14 @@ from cuda_satabsearch_tpu_torch.ops import sa_kernel
 from cuda_satabsearch_tpu_torch.ops.common import round8
 from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
 from cuda_satabsearch_tpu_torch.session import SearchSession, SessionConfig
+from satbench import deploy
 
 pytestmark = pytest.mark.card
 
 DB586 = os.path.join(os.path.dirname(__file__), "fixtures",
                      "tableauxdistmatrixdb.small.ascii")
+CONFIG14291 = Path(__file__).resolve().parent.parent / "satbench" / \
+    "configs" / "astral14291_r4096.json"
 SEED = 2 ** 31 - 11
 # the unsplit kernel per (widest bucket d2, n1r): (CTAs per SM,
 # registers, local bytes) at c_par 128 with LSOLN off and on, as the
@@ -81,6 +88,17 @@ def card():
     return torch.cuda.get_device_name(0)
 
 
+@pytest.fixture(scope="module")
+def db14291(tmp_path_factory):
+    """The 14,291-entry DB file of ``astral14291_r4096`` for SEED."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs on the card only")
+    config = json.loads(CONFIG14291.read_text())
+    assert config["db"]["entries"] == 14291
+    return str(deploy.prepare("astral14291_r4096", config, SEED,
+                              tmp_path_factory.mktemp("cache")).path)
+
+
 def count_replays(sess) -> list:
     """The session's graph replays, counted through its capture seam
     (ops/search.Searcher.capture)."""
@@ -102,10 +120,15 @@ def width16(sess, n):
 
 
 @pytest.mark.parametrize("lsoln", [False, True])
-@pytest.mark.parametrize("maxstart", [4096, 256])
-def test_a_split_query_equals_its_row_of_an_unsplit_list(card, maxstart,
-                                                         lsoln):
-    sess = SearchSession(DB586, SessionConfig(maxstart=maxstart, seed=SEED))
+@pytest.mark.parametrize(
+    "maxstart, db",
+    [(4096, "astral586"), (256, "astral586"), (4096, "astral14291"),
+     (256, "astral14291")],
+    ids=["4096", "256", "4096-astral14291", "256-astral14291"])
+def test_a_split_query_equals_its_row_of_an_unsplit_list(card, request,
+                                                         maxstart, db, lsoln):
+    path = DB586 if db == "astral586" else request.getfixturevalue("db14291")
+    sess = SearchSession(path, SessionConfig(maxstart=maxstart, seed=SEED))
     sess.searcher.capture = None  # eager: the list and the searches alike
     plan = sess.device_db[0]
     r_seq = maxstart // 128
@@ -132,9 +155,9 @@ def test_a_split_query_equals_its_row_of_an_unsplit_list(card, maxstart,
     n = 2 * len(picks)
     assert (sa_search.launches - before[0],
             sa_search.split_launches - before[1]) == (n, n)
-    print(f"\n{card}: r = {maxstart}, LSOLN {lsoln}: {len(picks)} queries "
-          f"split {split} ways == their rows of a 64-query list (unsplit)",
-          end="")
+    print(f"\n{card}: {db}, r = {maxstart}, LSOLN {lsoln}: {len(picks)} "
+          f"queries split {split} ways == their rows of a 64-query list "
+          "(unsplit)", end="")
 
 
 @pytest.mark.parametrize("lsoln", [False, True])
