@@ -27,7 +27,11 @@ DB.  Phases:
 2. the same cases on the seeded stream: the kernel derives every key
    from (seed, tag, file-order index) itself, the plain version takes
    them from ops/rng.entry_keys: bitwise, split and lane launches
-   counted;
+   counted, and the share of the screened warp-moves that took the
+   exact log (``sa_kernel.exact_log_share``) printed; ``ln_f32`` on the
+   card against the CPU, and the table of exact logs that the kernel
+   reads (``sa_kernel.LN_GRIDS``, made by ``sa_ln_grid`` once per
+   device) bitwise ``ops/rng.ln_f32`` over all 2**23 grid values;
 3. CLI main path, d1ubia_ query vs the 586-entry DB at r=128: the
    reference's top 3, scores equal to the plain engine's on the card,
    at most two SA launches and the start-up kernel's launch; the
@@ -384,9 +388,14 @@ def phase1(dev, out):
 def phase2(dev, out):
     from cuda_satabsearch_tpu_torch.ops import rng
     from cuda_satabsearch_tpu_torch.ops.engine import search_plan_plain
-    from cuda_satabsearch_tpu_torch.ops.sa_kernel import sa_search
+    from cuda_satabsearch_tpu_torch.ops.sa_kernel import (LN_GRIDS,
+                                                          device_index,
+                                                          exact_log_counts,
+                                                          exact_log_share,
+                                                          ln_grid, sa_search)
 
     worst, n = 0, 0
+    counts = exact_log_counts()
     splits, lanes = sa_search.split_launches, sa_search.lane_launches
     by_case = collections.Counter()
     for ci, cfg, q, plan in kernel_cases(dev):
@@ -405,22 +414,39 @@ def phase2(dev, out):
         worst, n = max(worst, err), n + 1
     splits = sa_search.split_launches - splits
     lanes = sa_search.lane_launches - lanes
+    exact, screened = (a - b for a, b in zip(exact_log_counts(), counts))
     say(f"phase2 seeded stream, keys derived in the kernel == plain plan on "
         f"ops/rng.entry_keys' stream (ln_f32 on the card): {n} cases, max "
         f"|diff| {worst} (tolerance 0: bitwise); {splits} split launches, "
         f"{lanes} with lanes; cases by lanes per chain (wide, narrow): "
-        f"{dict(by_case)}")
+        f"{dict(by_case)}; the Metropolis screen sent {exact} of {screened} "
+        f"warp-moves to the exact log (exact_log_share "
+        f"{exact_log_share(counts)})")
     if not splits:
         raise AssertionError("no launch split its restarts")
     if not lanes:
         raise AssertionError("no launch ran a chain on several lanes")
-    # ln u on the card vs on the CPU over every non-zero uniform
-    # (k * 2**-23): where they differ, -c and the card may part ways
-    grid = torch.arange(1, 2 ** 23, dtype=torch.float64).mul_(
+    # ln u on the card vs on the CPU over every uniform (k * 2**-23):
+    # where they differ, -c and the card may part ways; the kernel's
+    # table of exact logs has to be the CPU's bit for bit
+    grid = torch.arange(2 ** 23, dtype=torch.float64).mul_(
         2.0 ** -23).float()
-    diff = int((rng.ln_f32(grid.to(dev)).cpu() != rng.ln_f32(grid)).sum())
+    want = rng.ln_f32(grid)
+    diff = int((rng.ln_f32(grid.to(dev)).cpu() != want).sum())
+    table = LN_GRIDS[device_index(dev)].cpu()
+    table_diff = int((table != want).sum())
+    out["ln_grid_launches"] = ln_grid.launches
+    # ln 0 = -inf at k = 0 on both sides
+    out["ln_grid_err"] = float((table[1:] - want[1:]).abs().max())
     say(f"phase2 ln_f32 card vs CPU over {grid.numel()} uniform grid "
-        f"values: {diff} differ")
+        f"values: {diff} differ; the kernel's table (sa_ln_grid, "
+        f"{ln_grid.launches} launch(es) for {len(LN_GRIDS)} device(s)) "
+        f"vs ln_f32 on the CPU: {table_diff} differ (tolerance 0: bitwise)")
+    if not torch.equal(table, want):
+        raise AssertionError(f"the table of exact logs differs from ln_f32 "
+                             f"in {table_diff} grid values")
+    if ln_grid.launches != len(LN_GRIDS):
+        raise AssertionError("sa_ln_grid was not launched once per device")
     return worst
 
 
@@ -1722,7 +1748,18 @@ def main() -> int:
         "ms": out.get("warm_ms"), "plain_ms": out.get("warm_plain_ms"),
         "bound_ms": warm_bound, "bound_by": "bytes",
         "bound_share": share(warm_bound, out.get("warm_ms")),
-        "library_ms": out.get("warm_plain_ms")}]}))
+        "library_ms": out.get("warm_plain_ms")}, {
+        # a helper of sa_search: its table of exact logs, once per device
+        "name": "sa_ln_grid", "route": "cuda",
+        "source": "cuda_satabsearch_tpu_torch/csrc/sa_search.cu",
+        "replaces": None,
+        "launches": out.get("ln_grid_launches"),
+        "launches_by_path": {"sa_kernel.prepare, per device":
+                             out.get("ln_grid_launches")},
+        "launches_per_query": 0,
+        "max_abs_err": out.get("ln_grid_err"),
+        "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
+        "bound_share": None, "library_ms": None}]}))
     if failed:
         say(f"FAILED: {failed}")
         return 1

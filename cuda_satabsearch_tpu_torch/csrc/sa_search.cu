@@ -59,19 +59,24 @@
 // G = 4), or long queries (n1r >= 24); where a class already gives each
 // SM ~4 CTAs, the work every lane repeats (window, pick, bookkeeping)
 // costs more scheduler cycles than the shared delta saves (n1r 16:
-// 0.47 -> 0.51 ms at G = 2).  Timed by
-// knocking parts out, the O(n1) delta's shared-memory reads (two
-// dependent levels per mapped SSE) take about half of a move, the
-// threefry draws about a tenth and the double-precision log less
-// (scripts/torch_sa_kernel_ab.py).  Device-memory bytes do not bound
-// it: each CTA reads its tables once.  Budget: <= 64 registers per
-// thread with 0 spills (__launch_bounds__(128, 8); ptxas -v prints
-// both: 46-48; the split instantiations take (128, 10), which holds
-// them to the same 47-48 and 10 narrow CTAs per SM, where they would
-// take 54-56 and 9; the lane ones (128 G, 10 / G): 47-48 at G = 2, so
-// 5 CTAs of 256 threads per SM, 48-56 at G = 4; G = 8 timed slower than
-// G = 4 in every class and width, and is not built) and 40,480 B of
-// shared memory per CTA at n1r 8, d2 112, LSOLN, c_par 128
+// 0.47 -> 0.51 ms at G = 2).  Timed by knocking parts out
+// (scripts/torch_sa_kernel_ab.py), a move's cost depends on the regime.
+// On one 586-entry query (about 4 CTAs a SM) the O(n1) delta's
+// shared-memory reads (two dependent levels per mapped SSE) took about
+// half of a move.  On a full card (tiles of 8 queries against 14,291
+// entries at r = 4096, ~58 waves) the move's fixed path dominates: at
+// n1r 8 / 16 the three threefry draws take 48 / 43 %, the delta 13 /
+// 22 %, the screened Metropolis test 2.6 / 1.8 % (the double-precision
+// log it replaced took 11 / 10 %); the window, the pick and the
+// bookkeeping the rest.  Device-memory bytes do not bound it: each CTA
+// reads its tables once.  Budget: <= 64 registers per thread with 0
+// spills (__launch_bounds__(128, 8); ptxas -v prints both: 47-48; the
+// split instantiations take (128, 10), which holds them to the same
+// 47-48 and 10 narrow CTAs per SM, where they would take 54-56 and 9;
+// the lane ones (128 G, 10 / G): 47-48 at G = 2, so 5 CTAs of 256
+// threads per SM, 50-55 at G = 4; G = 8 timed slower than G = 4 in
+// every class and width, and is not built) and 40,480 B of shared
+// memory per CTA at n1r 8, d2 112, LSOLN, c_par 128
 // (sa_search_smem_bytes; 5 CTAs per SM), whatever G.
 //
 // Bitwise contract with the plain version and the JAX package: scores
@@ -79,6 +84,15 @@
 // (__fsub_rn / __fmul_rn, and the file is built with -fmad=false and
 // without --use_fast_math).  ln u is float(log(double(u))), the value
 // ops/rng.py ln_f32 computes with the same libdevice log on the card.
+// The Metropolis screen keeps it: with in-kernel draws (and a
+// temperature schedule that sa_kernel.screens admits) a move is decided
+// by the float32 fast_ln(u) where temp * fast_ln(u) lies more than
+// temp * sa_kernel.SCREEN_MARGIN from delta, a margin that bounds the
+// gap to temp * ln u and every rounding of the test
+// (tests/test_torch_accept_screen.py checks it on every grid u and
+// temperature); elsewhere ln u decides, read from a table of exact_ln
+// over the grid made once per device (sa_ln_grid), in one branch per
+// warp that ~2 in 10^4 of a warp's moves take.
 // The first maximal chain wins, its map the one of the first time
 // (restart, then move) it reached the max.  A split keeps that: each
 // chain's running max starts from maxscore_init in every split and is
@@ -141,6 +155,7 @@ struct SAParams {
   float init_matchprob;
   float eps;
   int maxscore_init;
+  float screen;  // the Metropolis screen's margin over temp
 };
 
 __host__ __device__ inline size_t align16(size_t x) {
@@ -233,6 +248,33 @@ __device__ __forceinline__ uint32_t word(const uint32_t (&m)[W], int w) {
   return r;
 }
 
+// ln u as the bitwise contract takes it (ops/rng.ln_f32).
+__device__ __forceinline__ float exact_ln(float u) {
+  return static_cast<float>(log(static_cast<double>(u)));
+}
+
+// The in-kernel draws are the uniform grid u = k 2^-23, k < 2^23: k.
+__device__ __forceinline__ uint32_t grid_index(float u) {
+  return __float2uint_rz(u * 8388608.0f);
+}
+
+// exact_ln of every grid value, ln_grid[k] = exact_ln(k 2^-23): the
+// table that the Metropolis test reads where the screen leaves a move
+// in doubt (made once per device, sa_search_ln_grid).
+__global__ void sa_ln_grid(float* __restrict__ ln_grid) {
+  const uint32_t k = blockIdx.x * blockDim.x + threadIdx.x;
+  ln_grid[k] = exact_ln(static_cast<float>(k) * 0x1p-23f);
+}
+
+// ln u in float32 from the hardware's log2 (lg2.approx, -inf at u = 0):
+// within sa_kernel.FAST_LN_ERR of exact_ln(u) on the uniform grid
+// (tests/test_torch_accept_screen_card.py measures it).
+__device__ __forceinline__ float fast_ln(float u) {
+  float l2;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l2) : "f"(u));
+  return __fmul_rn(l2, 0.693147180559945309f);
+}
+
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -289,6 +331,9 @@ __device__ __forceinline__ uint32_t lane_next(uint32_t m) {
 // updates it from the same values; lane 0 alone writes its map plane.
 // The lanes share out a move's draws and its delta, and the initial
 // score's and the LSOLN copy's loops, and sum by shuffles.
+// ln_grid: sa_ln_grid's table (in-kernel draws); exact: a counter of
+// the moves whose Metropolis test read it, one per warp-move, or null
+// (the loop's acceptance).
 template <int EW, int QW, bool SPLIT, int G>
 __global__ void __launch_bounds__(128 * G, G > 1 ? 10 / G : SPLIT ? 10 : 8)
     sa_plan_kernel(
@@ -299,7 +344,8 @@ __global__ void __launch_bounds__(128 * G, G > 1 ? 10 / G : SPLIT ? 10 : 8)
     const float* __restrict__ uniforms, int ecols, int r_seq, int lorder,
     int lsoln, SAParams p, int* __restrict__ out_scores,
     int* __restrict__ out_maps, int* __restrict__ part,
-    int8_t* __restrict__ part_maps) {
+    int8_t* __restrict__ part_maps, const float* __restrict__ ln_grid,
+    unsigned long long* __restrict__ exact) {
   static_assert(G == 1 || ((G == 2 || G == 4) && !SPLIT),
                 "lanes per chain: 1, or 2 or 4 unsplit");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -401,32 +447,25 @@ __global__ void __launch_bounds__(128 * G, G > 1 ? 10 / G : SPLIT ? 10 : 8)
                            : uniform_at(rk0, rk1,
                                         static_cast<uint32_t>(s * C + c));
     };
-    auto draw_log = [&](int s) -> float {  // acceptance slots carry ln u
-      if (ur != nullptr) return ur[static_cast<size_t>(s) * C + c];
-      const float u = uniform_at(rk0, rk1, static_cast<uint32_t>(s * C + c));
-      return static_cast<float>(log(static_cast<double>(u)));  // ops/rng.ln_f32
-    };
-    // a move's draws, slots base .. base + 2, into (move, candidate, ln
-    // acceptance); with lanes, lane g draws slot base + min(g, 2) (G = 2:
-    // slot base + g, and both slot base + 2) and the lanes trade them
-    auto draw_move = [&](int base, float& um, float& uc, float& la) {
+    // a move's draws, slots base .. base + 2, into (move, candidate,
+    // acceptance; a supplied stream's acceptance slot carries ln u); with
+    // lanes, lane g draws slot base + min(g, 2) (G = 2: slot base + g,
+    // and both slot base + 2) and the lanes trade them
+    auto draw_move = [&](int base, float& um, float& uc, float& ua) {
       if constexpr (G == 1) {
         um = draw(base);
         uc = draw(base + 1);
-        la = draw_log(base + 2);
+        ua = draw(base + 2);
       } else if constexpr (G == 2) {
         const float v = draw(base + g);
-        la = draw_log(base + 2);
+        ua = draw(base + 2);
         um = __shfl_sync(gmask, v, 0, G);
         uc = __shfl_sync(gmask, v, 1, G);
       } else {
         const float v = draw(base + min(g, 2));
-        const float lv = ur != nullptr
-                             ? v
-                             : static_cast<float>(log(static_cast<double>(v)));
         um = __shfl_sync(gmask, v, 0, G);
         uc = __shfl_sync(gmask, v, 1, G);
-        la = __shfl_sync(gmask, lv, 2, G);
+        ua = __shfl_sync(gmask, v, 2, G);
       }
     };
 
@@ -506,7 +545,7 @@ __global__ void __launch_bounds__(128 * G, G > 1 ? 10 / G : SPLIT ? 10 : 8)
     float nx_move = 0.0f, nx_cand = 0.0f, nx_acc = 0.0f;
     if (p.maxiter > 0) draw_move(n1r, nx_move, nx_cand, nx_acc);
     for (int it = 0; it < p.maxiter; ++it) {
-      const float u_move = nx_move, u_cand = nx_cand, ln_acc = nx_acc;
+      const float u_move = nx_move, u_cand = nx_cand, u_acc = nx_acc;
       if (it + 1 < p.maxiter)  // move it+1's draws, off the chain
         draw_move(n1r + 3 * (it + 1), nx_move, nx_cand, nx_acc);
       const int ssei = static_cast<int>(__fmul_rn(__fsub_rn(u_move, p.eps), n1f));
@@ -597,8 +636,33 @@ __global__ void __launch_bounds__(128 * G, G > 1 ? 10 / G : SPLIT ? 10 : 8)
             s_best[k * C] = k == ssei ? static_cast<int8_t>(newj) : s_map[k * C];
       }
 
-      // log-domain Metropolis acceptance
-      if (static_cast<float>(delta) > __fmul_rn(temp, ln_acc)) {
+      // log-domain Metropolis acceptance, delta > temp * ln u.  Drawn
+      // in the kernel, fast_ln decides where temp * fast_ln(u) lies
+      // farther than temp * p.screen from delta (sa_kernel.SCREEN_MARGIN:
+      // the same decision as exact_ln's; a NaN margin leaves every move
+      // in doubt); else exact_ln does, read from ln_grid (computed here
+      // in double precision it would add registers to every move), in
+      // one branch for the warp (a chain's lanes agree), which its
+      // lowest lane counts
+      const float fdelta = static_cast<float>(delta);
+      bool accept;
+      if (ur != nullptr) {
+        accept = fdelta > __fmul_rn(temp, u_acc);  // the slot holds ln u
+      } else {
+        const float prod = __fmul_rn(temp, fast_ln(u_acc));
+        const float margin = __fmul_rn(temp, p.screen);
+        accept = fdelta > __fadd_rn(prod, margin);
+        const bool near = !accept && !(fdelta < __fsub_rn(prod, margin));
+        const unsigned active = __activemask();
+        if (__any_sync(active, near)) {
+          if (near)
+            accept = fdelta >
+                     __fmul_rn(temp, __ldg(ln_grid + grid_index(u_acc)));
+          if (exact != nullptr && (tid & 31) == __ffs(active) - 1)
+            atomicAdd(exact, 1ull);
+        }
+      }
+      if (accept) {
         score = newscore;
         if (g == 0) s_map[ssei * C] = static_cast<int8_t>(newj);
         if (oldj >= 0) clear_bit(used, oldj);
@@ -698,7 +762,8 @@ __global__ void __launch_bounds__(32) sa_split_reduce(
 using KernelFn = void (*)(PlanDesc, const int8_t*, const uint8_t*,
                           const float*, const int*, int, uint32_t,
                           const int*, const float*, int, int, int, int,
-                          SAParams, int*, int*, int*, int8_t*);
+                          SAParams, int*, int*, int*, int8_t*,
+                          const float*, unsigned long long*);
 
 // The instantiation for a launch class whose widest bucket is d2max.
 template <bool SPLIT, int G>
@@ -792,17 +857,23 @@ int sa_search_occupancy(int d2max, int n1r, int c_par, int lsoln, int split,
 // to out_maps[(q * ecols + column) * n1r + i].  A split launch's
 // scratch: `part` int32[K * entries * splits * 2] and, under lsoln,
 // `part_maps` int8[K * entries * splits * n1r] (both null unsplit).
+// In-kernel draws screen the Metropolis test with margin `screen` over
+// the temperature (sa_kernel.screens says where a margin holds; NaN
+// screens nothing), read the exact log of a move left in doubt from
+// `ln_grid` (sa_search_ln_grid's table) and add each warp-move that did
+// to `exact`, a device counter, unless it is null.
 int sa_search_launch(const PlanDesc* plan, int d2max, const int8_t* qtypes,
                      const uint8_t* qtab, const float* qdmat, const int* n1s,
                      int K, int n1r, uint32_t seed, const int* tags,
                      const float* uniforms, int ecols, int c_par, int r_seq,
                      int lorder, int lsoln, int maxiter, float temp0,
                      float alpha, float mxssed, float init_matchprob,
-                     float eps, int maxscore_init, int splits, int lanes,
-                     int* part, int8_t* part_maps, int* out_scores,
-                     int* out_maps, void* stream) {
+                     float eps, int maxscore_init, float screen,
+                     const float* ln_grid, unsigned long long* exact,
+                     int splits, int lanes, int* part, int8_t* part_maps,
+                     int* out_scores, int* out_maps, void* stream) {
   const SAParams p{maxiter, temp0, alpha, mxssed, init_matchprob, eps,
-                   maxscore_init};
+                   maxscore_init, screen};
   int nblocks = 0;
   for (int i = 0; i < plan->nb; ++i) nblocks += plan->b[i].E;
   const size_t smem = sa_search_smem_bytes(n1r, d2max, c_par, lsoln);
@@ -813,12 +884,21 @@ int sa_search_launch(const PlanDesc* plan, int d2max, const int8_t* qtypes,
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   fn<<<grid, c_par * lanes, smem, st>>>(
       *plan, qtypes, qtab, qdmat, n1s, n1r, seed, tags, uniforms, ecols,
-      r_seq, lorder, lsoln, p, out_scores, out_maps, part, part_maps);
+      r_seq, lorder, lsoln, p, out_scores, out_maps, part, part_maps, ln_grid,
+      exact);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits <= 1) return static_cast<int>(err);
   sa_split_reduce<<<dim3(grid.x, grid.y), 32, 0, st>>>(
       *plan, ecols, n1r, splits, part, lsoln ? part_maps : nullptr,
       out_scores, lsoln ? out_maps : nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Fills ln_grid[k] = float(log(double(k 2^-23))), k < 2^23 (float[2^23]
+// on the current device), on `stream`.  Returns the cudaError_t.
+int sa_search_ln_grid(float* ln_grid, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  sa_ln_grid<<<(1 << 23) / 256, 256, 0, st>>>(ln_grid);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,7 +26,14 @@ unsplit launch pair fits in one wave, each class runs a chain on
 several lanes (``chain_lanes``).  ``sa_search.launches`` counts SA
 kernel launches, ``sa_search.split_launches`` those of them that split
 and ``sa_search.lane_launches`` those that run a chain on more than one
-lane.
+lane.  With the stream drawn in the kernel, the kernel screens each
+move's Metropolis test in float32 (``screens``, ``SCREEN_MARGIN``) and
+reads the double-precision log (from a table of the uniform grid made
+once per device, ``ln_grid``) only where a warp's move is near the
+boundary: ``sa_search.screened_warp_moves`` counts the screened
+warp-moves the launches make, a device counter those that took the
+exact log, and ``exact_log_share`` reads their ratio (over the launches
+the wrapper makes, and not a captured CUDA graph's replays).
 """
 
 from __future__ import annotations
@@ -72,6 +79,19 @@ LANES = (1, 2, 4)
 # share of the delta has to outweigh the move's work that every lane
 # repeats (H100 timings by query width and lanes: PERF.md)
 LANE_SSES = 12
+# the most |fast_ln(u) - ln u| on the uniform grid u = k 2**-23 that the
+# Metropolis screen allows for (csrc/sa_search.cu fast_ln: lg2.approx x
+# ln 2; tests/test_torch_accept_screen_card.py measures it on the card)
+FAST_LN_ERR = 2.0 ** -18
+# the screen's margin over the temperature: it bounds |temp * fast_ln(u)
+# - temp * ln u| at FAST_LN_ERR with the roundings of the float32 test
+# (tests/test_torch_accept_screen.py derives the least such margin and
+# holds the screened decision to the exact one on every grid u and
+# temperature)
+SCREEN_MARGIN = 2.0 ** -17
+# the temperatures a screen admits: their float32 products with a log of
+# the grid (|ln u| <= 23 ln 2) and with SCREEN_MARGIN stay normal
+SCREEN_TEMPS = (2.0 ** -100, 2.0 ** 100)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -96,6 +116,14 @@ class Library:
     log: str  # nvcc's output (ptxas registers / shared memory / spills)
     # device index -> its dynamic shared-memory limit, once prepared
     smem_limit: dict = field(default_factory=dict)
+
+
+# device index -> int64[1] on it, the count of screened warp-moves that
+# took the exact log there (made by ``prepare``; the kernel adds to it)
+EXACT_COUNTS: dict = {}
+# device index -> float32[2**23] on it, float(log(double(k 2**-23))) for
+# every k (``ln_grid``)
+LN_GRIDS: dict = {}
 
 
 def find_nvcc() -> str:
@@ -148,6 +176,7 @@ def load_library() -> Library:
         ctypes.c_uint32, P, P, I,  # seed, tags, uniforms, ecols
         I, I, I, I,  # c_par, r_seq, lorder, lsoln
         I, F, F, F, F, F, I,  # SAParams
+        F, P, P,  # screen, ln_grid, exact
         I, I, P, P,  # splits, lanes, part, part_maps
         P, P, P]  # out_scores, out_maps, stream
     lib.sa_search_launch.restype = I
@@ -157,6 +186,8 @@ def load_library() -> Library:
     lib.sa_search_smem_bytes.restype = ctypes.c_size_t
     lib.sa_search_occupancy.argtypes = [I, I, I, I, I, I, P, P, P]
     lib.sa_search_occupancy.restype = I
+    lib.sa_search_ln_grid.argtypes = [P, P]  # ln_grid, stream
+    lib.sa_search_ln_grid.restype = I
     lib.sa_search_error_string.argtypes = [I]
     lib.sa_search_error_string.restype = ctypes.c_char_p
     lib.add_one_launch.argtypes = [P, P, I, P]  # x, out, n, stream
@@ -178,12 +209,18 @@ def cuda_error(what: str, err: int) -> RuntimeError:
                         .sa_search_error_string(err).decode())
 
 
+def device_index(dev: torch.device) -> int:
+    """The index of CUDA device ``dev`` (the current one where it has
+    none)."""
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
 def prepare(dev: torch.device) -> int:
-    """Load the SA kernel's module on CUDA device ``dev`` and allow it
-    the device's opt-in dynamic shared memory, once per device; returns
-    that limit in bytes."""
+    """Load the SA kernel's module on CUDA device ``dev``, allow it the
+    device's opt-in dynamic shared memory and make its exact-log counter
+    and ``ln_grid``, once per device; returns that limit in bytes."""
     library = load_library()
-    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    idx = device_index(dev)
     if idx not in library.smem_limit:
         limit = torch.cuda.get_device_properties(
             idx).shared_memory_per_block_optin
@@ -192,7 +229,87 @@ def prepare(dev: torch.device) -> int:
         if err != 0:
             raise cuda_error("SA kernel prepare", err)
         library.smem_limit[idx] = limit
+    if idx not in EXACT_COUNTS:
+        EXACT_COUNTS[idx] = torch.zeros(1, dtype=torch.int64,
+                                        device=torch.device("cuda", idx))
+        LN_GRIDS[idx] = ln_grid(idx)
     return library.smem_limit[idx]
+
+
+def ln_grid(idx: int) -> torch.Tensor:
+    """float32[2**23] on CUDA device ``idx``: float(log(double(k
+    2**-23))) at k, the kernel's own exact log (ops/rng.ln_f32) of every
+    value its draws take; the Metropolis test reads it where the screen
+    leaves a move in doubt (32 MiB a device).  Made before it returns, so
+    that a launch on any stream may read it; ``ln_grid.launches`` counts
+    its kernel's (sa_ln_grid's) launches."""
+    grid = torch.empty(2 ** 23, dtype=torch.float32,
+                       device=torch.device("cuda", idx))
+    stream = torch.cuda.current_stream(idx)
+    with torch.cuda.device(idx):
+        err = load_library().lib.sa_search_ln_grid(grid.data_ptr(),
+                                                   stream.cuda_stream)
+    if err != 0:
+        raise cuda_error("SA kernel ln_grid", err)
+    ln_grid.launches += 1
+    stream.synchronize()
+    return grid
+
+
+ln_grid.launches = 0
+
+
+def temperatures(params: SAParams) -> np.ndarray:
+    """The temperature of each of a restart's moves, float32[maxiter]:
+    temp0, then times alpha each move, in float32 as the kernel does (a
+    running product, one rounding a move)."""
+    steps = np.full(params.maxiter, params.alpha, np.float32)
+    steps[:1] = params.temp0
+    with np.errstate(over="ignore", invalid="ignore"):
+        return np.multiply.accumulate(steps)
+
+
+@functools.lru_cache(maxsize=None)
+def screens(params: SAParams) -> bool:
+    """Whether the kernel screens the Metropolis test under ``params``:
+    where every temperature lies in ``SCREEN_TEMPS`` (so temp0 and alpha
+    are positive and finite) and a restart makes moves (once per
+    ``params``)."""
+    lo, hi = SCREEN_TEMPS
+    temps = temperatures(params)
+    return bool(temps.size) and bool(((temps >= lo) & (temps <= hi)).all())
+
+
+def screened_warp_moves(plan, K: int, lanes, *, c_par: int, r_seq: int,
+                        maxiter: int) -> int:
+    """Warp-moves of the SA launches of K queries against ``plan`` at
+    ``lanes`` lanes per chain in each launch class: per (entry, query),
+    the warps of c_par x G threads times r_seq x maxiter moves (a split
+    runs the same moves in S CTAs of r_seq / S restarts)."""
+    return sum(K * cls.entries * -(-c_par * g // 32) * r_seq * maxiter
+               for cls, g in zip(plan.classes, lanes))
+
+
+def exact_log_counts() -> tuple[int, int]:
+    """(warp-moves that took the exact log, screened warp-moves) so far,
+    over every prepared device and the launches ``sa_search`` made
+    outside a CUDA graph's capture; synchronises with the devices, so it
+    is never called on the search path."""
+    exact = 0
+    for idx, count in EXACT_COUNTS.items():
+        torch.cuda.synchronize(idx)
+        exact += int(count.item())
+    return exact, sa_search.screened_warp_moves
+
+
+def exact_log_share(since: tuple[int, int] = (0, 0)) -> float | None:
+    """``sa_search.exact_log_share``: the share of the screened
+    warp-moves since ``since`` (an earlier ``exact_log_counts()``) that
+    took the exact log; None where none was screened."""
+    exact, screened = exact_log_counts()
+    if screened == since[1]:
+        return None
+    return (exact - since[0]) / (screened - since[1])
 
 
 def occupancy(d2max: int, n1r: int, c_par: int, lsoln: bool,
@@ -369,7 +486,9 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
     per chain ``chain_lanes`` gives (the results are bitwise those of the
     unsplit launch at one lane per chain).  Returns (scores int32[K, E],
     maps int32[K, E, n1r] or None), E = plan.nentries in the plan's
-    order.  ``seed`` must lie in [-2**31, 2**31) (ops/rng.check_seed)."""
+    order.  ``seed`` must lie in [-2**31, 2**31) (ops/rng.check_seed).
+    Drawn in the kernel, each move's acceptance is screened where
+    ``screens(params)``; the results are bitwise the same."""
     seed = check_seed(seed)
     dev = plan.device
     if dev.type == "cpu":
@@ -420,6 +539,12 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
             uniforms.data_ptr() if uniforms is not None else None, E,
             c_par, r_seq, int(lorder), int(lsoln), p.maxiter, p.temp0,
             p.alpha, p.mxssed, p.init_matchprob, p.eps, p.maxscore_init)
+    # the screen's margin and the exact logs, or a NaN margin: no screen
+    # (every move reads the exact log)
+    idx = device_index(dev)
+    screen = uniforms is None and screens(params)
+    args += (SCREEN_MARGIN if screen else float("nan"),
+             LN_GRIDS[idx].data_ptr())
     outs = (scores.data_ptr(), maps.data_ptr() if maps is not None else None)
     split, lanes = launch_shape(plan, K, n1r, c_par=c_par, r_seq=r_seq,
                                 lsoln=lsoln)
@@ -435,7 +560,7 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
     def launch(i, stream):
         cls, (part, part_maps) = plan.classes[i], scratch[i]
         err = lib.sa_search_launch(
-            ctypes.byref(cls.desc), cls.d2max, *args, split, lanes[i],
+            ctypes.byref(cls.desc), cls.d2max, *args, exact, split, lanes[i],
             None if part is None else part.data_ptr(),
             None if part_maps is None else part_maps.data_ptr(), *outs,
             stream.cuda_stream)
@@ -446,15 +571,24 @@ def sa_search(qtypes, qtab, qdmat, n1s, plan, *, seed: int = 0, tags=None,
         sa_search.lane_launches += lanes[i] > 1
 
     with device_guard(dev):
+        # the exact-log counter and the screened warp-moves count the
+        # launches run now, not those a CUDA graph captures (whose
+        # replays would add to the one and not the other)
+        count = screen and not torch.cuda.is_current_stream_capturing()
+        exact = EXACT_COUNTS[idx].data_ptr() if count else None
         current = torch.cuda.current_stream(dev)
         if len(plan.classes) == 1:
             launch(0, current)
         else:  # the wide class on the side stream: both classes together
             fork_join(current, functools.partial(launch, 0),
                       functools.partial(launch, 1))
+    if count:
+        sa_search.screened_warp_moves += screened_warp_moves(
+            plan, K, lanes, c_par=c_par, r_seq=r_seq, maxiter=p.maxiter)
     return scores, maps
 
 
 sa_search.launches = 0
 sa_search.split_launches = 0
 sa_search.lane_launches = 0
+sa_search.screened_warp_moves = 0

@@ -3,8 +3,9 @@
 ``warm_search`` is what core/warmup.py runs after the start-up kernel:
 it loads the SA kernel's module and brings up what a search does around
 the kernel (ops/kernel_search.py: the staging, the upload, the gather
-into file order; ops/sa_kernel.py: a plan's fork and join), so that a
-change to any of them is warmed with it.
+into file order; ops/sa_kernel.py: a plan's fork and join and whether a
+launch screens its Metropolis test), so that a change to any of them is
+warmed with it.
 """
 
 from __future__ import annotations
@@ -14,9 +15,10 @@ import time
 import numpy as np
 import torch
 
+from ..core.constants import DEFAULTS
 from ..io.pack import PackedQuery
 from .kernel_search import Staging, stage, to_file_order
-from .sa_kernel import device_guard, fork_join, prepare
+from .sa_kernel import device_guard, fork_join, prepare, screens
 
 # a one-SSE query: what the start-up stages
 WARM_QUERY = PackedQuery(name="warm", order=1,
@@ -28,14 +30,18 @@ WARM_QUERY = PackedQuery(name="warm", order=1,
 
 def warm_search(device: torch.device) -> tuple[float, float]:
     """Bring up a search's path on CUDA device ``device``: prepare the SA
-    kernel's module (ops/sa_kernel.prepare), then, through a search's
-    own code, a one-query group staged in pinned memory and uploaded, a
-    plan's fork and join (ops/sa_kernel.fork_join), the gather of scores
-    and maps into file order (ops/kernel_search.to_file_order: the first
-    use of a kernel loads its module), and the wait for them.  Returns
-    the wall seconds of the two parts."""
+    kernel's module (ops/sa_kernel.prepare) and decide whether the
+    default schedule's launches screen (ops/sa_kernel.screens: its first
+    call, ~0.1 ms, would otherwise fall in the first search), then,
+    through a search's own code, a one-query group staged in pinned
+    memory and uploaded, a plan's fork and join (ops/sa_kernel.fork_join),
+    the gather of scores and maps into file order
+    (ops/kernel_search.to_file_order: the first use of a kernel loads its
+    module), and the wait for them.  Returns the wall seconds of the two
+    parts."""
     t0 = time.perf_counter()
     prepare(device)
+    screens(DEFAULTS)
     t1 = time.perf_counter()
     staging = Staging(1, 8, pin=True)
     stage(staging, [WARM_QUERY], [0])

@@ -4,6 +4,7 @@ sa_search.cu), timed in turns in one process on one NVIDIA GPU.
     python3 scripts/torch_sa_kernel_ab.py
     python3 scripts/torch_sa_kernel_ab.py --lanes
     python3 scripts/torch_sa_kernel_ab.py --groups [SEED]
+    python3 scripts/torch_sa_kernel_ab.py --full-card [SEED]
 
 Each variant is the kernel's source with one part rewritten, built with
 the port's nvcc flags into cuda_satabsearch_tpu_torch/_build/variants/
@@ -16,10 +17,11 @@ wrapper.  Two groups:
   branch on the last move; ``popc_pick`` picks the (rpick+1)-th
   candidate with a popc binary search instead of ``__fns``;
 * knock-outs, which give other results and are timed only, to see where
-  a move's time goes: ``knock_log`` takes ln u as ``__logf`` instead of
-  float(log(double)), ``knock_rng`` replaces threefry by one multiply,
-  ``knock_delta`` skips the O(n1) delta loop, ``knock_all`` does all
-  three.
+  a move's time goes: ``knock_log`` decides the Metropolis test with
+  ``__logf(u)`` alone instead of the screened float32 test and its
+  double-precision log (``LOG_KNOCK``), ``knock_rng`` replaces threefry
+  by one multiply, ``knock_delta`` skips the O(n1) delta loop,
+  ``knock_all`` does all three.
 
 Times (CUDA events) on the 586-entry fixture DB with the d1ubia_ query
 at r = 128 (the full plan, and the plan of the one 80-wide entry alone:
@@ -35,6 +37,16 @@ SSEs; every G equals G = 1 bitwise (scores and maps).  Each instantiation's
 CTAs per SM, registers and local bytes, and the rule's own choice, are
 printed beside the times (CUDA events, 50 launches, turns forward then
 reversed, twice).
+
+``--full-card`` times ``FULL_CARD_VARIANTS`` (base, ``popc_pick``,
+which must stay bitwise, and the three knock-outs) where the card is
+full: the first ``FULL_CARD_K`` queries of the n1r 8 and the n1r 16
+group of ``--groups``' list, each as one tile at r = 4096 (one
+``sa_search`` of 128 chains x 32 restarts in order, LORDER on, LSOLN
+off, ~60 waves of CTAs), against the seed's 14,291-entry DB; CUDA
+events, two calls a turn, the variants forward then reversed.  Each
+part's share of a full-card move is 1 - its knock-out's time over the
+base's.
 
 ``--groups`` takes the kernel as it is through one list of the
 benchmark cell ``astral14291_r4096.query200`` (the seed's 14,291-entry
@@ -64,22 +76,23 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops import sa_kernel  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops.common import round8  # noqa: E402
 from cuda_satabsearch_tpu_torch.ops.kernel_search import (  # noqa: E402
-    make_plan, pack_queries)
+    launch_figures, make_plan, pack_queries)
 from cuda_satabsearch_tpu_torch.session import (  # noqa: E402
     SearchSession, SessionConfig)
 
-AHEAD = """      const float u_move = nx_move, u_cand = nx_cand, ln_acc = nx_acc;
+AHEAD = """      const float u_move = nx_move, u_cand = nx_cand, u_acc = nx_acc;
       if (it + 1 < p.maxiter)  // move it+1's draws, off the chain
         draw_move(n1r + 3 * (it + 1), nx_move, nx_cand, nx_acc);"""
-NO_AHEAD = """      float u_move, u_cand, ln_acc;
-      draw_move(n1r + 3 * it, u_move, u_cand, ln_acc);"""
-AHEAD_NOBRANCH = """      const float u_move = nx_move, u_cand = nx_cand, ln_acc = nx_acc;
+NO_AHEAD = """      float u_move, u_cand, u_acc;
+      draw_move(n1r + 3 * it, u_move, u_cand, u_acc);"""
+AHEAD_NOBRANCH = """      const float u_move = nx_move, u_cand = nx_cand, u_acc = nx_acc;
       draw_move(n1r + 3 * min(it + 1, p.maxiter - 1), nx_move, nx_cand,
                 nx_acc);"""
 FNS = "newj = 32 * w + static_cast<int>(__fns(cand[w], 0, rank + 1));"
@@ -97,8 +110,21 @@ POPC = """{
             }
             newj = 32 * w + pos;
           }"""
-LOG = ("return static_cast<float>(log(static_cast<double>(u)));"
-       "  // ops/rng.ln_f32")
+# the screened Metropolis test of in-kernel draws, and its knock-out
+LOG_KNOCK = ("""        const float prod = __fmul_rn(temp, fast_ln(u_acc));
+        const float margin = __fmul_rn(temp, p.screen);
+        accept = fdelta > __fadd_rn(prod, margin);
+        const bool near = !accept && !(fdelta < __fsub_rn(prod, margin));
+        const unsigned active = __activemask();
+        if (__any_sync(active, near)) {
+          if (near)
+            accept = fdelta >
+                     __fmul_rn(temp, __ldg(ln_grid + grid_index(u_acc)));
+          if (exact != nullptr && (tid & 31) == __ffs(active) - 1)
+            atomicAdd(exact, 1ull);
+        }
+""", """        accept = fdelta > __fmul_rn(temp, __logf(u_acc));
+""")
 THREEFRY = "  uint32_t x0 = 0, x1 = i;\n  threefry2x32(k0, k1, x0, x1);\n"
 DELTA = "        uint32_t m = word(mapped, w);\n"
 
@@ -111,20 +137,29 @@ def rewrite(src: str, *edits) -> str:
     return src
 
 
-def variants(src: str) -> tuple[dict, dict]:
-    """({name: source} bitwise variants, {name: source} knock-outs)."""
-    log = (LOG, "return __logf(u);")
-    rng = (THREEFRY, "  uint32_t x0 = i * 0x9E3779B9u ^ k0, x1 = i + k1;\n")
-    delta = (DELTA, "        uint32_t m = 0u;\n")
-    design = {"base": src,
-              "no_ahead": rewrite(src, (AHEAD, NO_AHEAD)),
-              "ahead_nobranch": rewrite(src, (AHEAD, AHEAD_NOBRANCH)),
-              "popc_pick": rewrite(src, (FNS, POPC))}
-    knock = {"knock_log": rewrite(src, log),
-             "knock_rng": rewrite(src, rng),
-             "knock_delta": rewrite(src, delta),
-             "knock_all": rewrite(src, log, rng, delta)}
-    return design, knock
+RNG_KNOCK = (THREEFRY,
+             "  uint32_t x0 = i * 0x9E3779B9u ^ k0, x1 = i + k1;\n")
+DELTA_KNOCK = (DELTA, "        uint32_t m = 0u;\n")
+# name -> the edits that make it; the design variants are bitwise
+DESIGN = {"base": (), "no_ahead": ((AHEAD, NO_AHEAD),),
+          "ahead_nobranch": ((AHEAD, AHEAD_NOBRANCH),),
+          "popc_pick": ((FNS, POPC),)}
+KNOCK = {"knock_log": (LOG_KNOCK,), "knock_rng": (RNG_KNOCK,),
+         "knock_delta": (DELTA_KNOCK,),
+         "knock_all": (LOG_KNOCK, RNG_KNOCK, DELTA_KNOCK)}
+FULL_CARD_VARIANTS = ("base", "popc_pick", "knock_log", "knock_rng",
+                      "knock_delta")
+FULL_CARD_K = 8  # queries of a full-card tile
+# the library's entry points that a variant's build binds as the port's
+LIBRARY_FUNCTIONS = ("sa_search_launch", "sa_search_prepare",
+                     "sa_search_smem_bytes", "sa_search_occupancy",
+                     "sa_search_ln_grid", "sa_search_error_string",
+                     "add_one_launch")
+
+
+def variants(src: str, names) -> dict:
+    """{name: source} of the named variants (``DESIGN``, ``KNOCK``)."""
+    return {name: rewrite(src, *{**DESIGN, **KNOCK}[name]) for name in names}
 
 
 def build(sources: dict) -> dict:
@@ -151,9 +186,7 @@ def build(sources: dict) -> dict:
                        for ln in log.splitlines() if "registers" in ln})
         print(f"{name}: ptxas registers {regs}", flush=True)
         lib = ctypes.CDLL(str(vdir / f"{name}.so"))
-        for fn in ("sa_search_launch", "sa_search_prepare",
-                   "sa_search_smem_bytes", "sa_search_occupancy",
-                   "sa_search_error_string", "add_one_launch"):
+        for fn in LIBRARY_FUNCTIONS:
             getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
             getattr(lib, fn).restype = getattr(ref, fn).restype
         libs[name] = sa_kernel.Library(lib=lib, path=vdir / f"{name}.so",
@@ -257,8 +290,6 @@ def lanes_probe() -> int:
 
 def groups_probe(seed: int) -> int:
     """``--groups`` (module docstring)."""
-    import numpy as np
-
     from cuda_satabsearch_tpu_torch import trace
     from cuda_satabsearch_tpu_torch.stats.gumbel import score_stats
     from satbench import bound, deploy
@@ -367,6 +398,74 @@ def groups_probe(seed: int) -> int:
     return 0
 
 
+def full_card_probe(seed: int) -> int:
+    """``--full-card`` (module docstring)."""
+    from satbench import deploy
+    from satbench.cells import load_cell
+    from satbench.gen import Traffic
+
+    cell = load_cell("astral14291_r4096.query200")
+    dep = deploy.prepare(cell.config_name, cell.config, seed)
+    index = dep.index
+    sess = SearchSession(str(dep.path), SessionConfig(
+        maxstart=cell.config["maxstart"], seed=seed % 2 ** 31))
+    (plan,) = sess.device_db
+    kw = sess.searcher.kw
+    dev = plan.device
+    picks = Traffic(cell.traffic, index.orders, seed).next_call()
+    groups = {}
+    for i in picks:
+        q = sess.resolve_query(index.names[i])
+        groups.setdefault(round8(q.order), []).append(q)
+    tiles = {n1r: pack_queries(groups[n1r][:FULL_CARD_K], n1r, dev)
+             for n1r in (8, 16)}
+    libs = build(variants(sa_kernel.SOURCES[0].read_text(),
+                          FULL_CARD_VARIANTS))
+    real = sa_kernel.load_library
+
+    def search(name, q):
+        sa_kernel.load_library = lambda: libs[name]
+        try:
+            return sa_kernel.sa_search(
+                *q, plan, seed=seed % 2 ** 31, tags=list(range(len(q[3]))),
+                c_par=kw["c_par"], r_seq=kw["r_seq"], lorder=True,
+                lsoln=False)
+        finally:
+            sa_kernel.load_library = real
+
+    for n1r, q in tiles.items():
+        S, lanes = sa_kernel.launch_shape(plan, len(q[3]), n1r,
+                                          c_par=kw["c_par"],
+                                          r_seq=kw["r_seq"], lsoln=False)
+        ctas, slots, _ = launch_figures(plan, len(q[3]), n1r,
+                                        c_par=kw["c_par"], r_seq=kw["r_seq"],
+                                        lsoln=False, maxiter=100)
+        base = search("base", q)[0]
+        if not torch.equal(search("popc_pick", q)[0], base):
+            raise SystemExit(f"popc_pick differs from the kernel at n1r {n1r}")
+        print(f"n1r {n1r}: {len(q[3])} queries x {plan.nentries} entries, "
+              f"r = {cell.config['maxstart']} (c_par {kw['c_par']} x r_seq "
+              f"{kw['r_seq']}), S {S}, lanes {lanes}, {ctas / slots:.1f} "
+              "waves; popc_pick == base bitwise", flush=True)
+    names = list(FULL_CARD_VARIANTS)
+    times = {}
+    for name in names + names[::-1]:
+        for n1r, q in tiles.items():
+            times.setdefault((n1r, name), []).append(
+                chip_smoke.cuda_ms(lambda: search(name, q), 2))
+    print(chip_smoke.card_line())
+    for n1r in tiles:
+        base = float(np.median(times[(n1r, "base")]))
+        print(f"n1r {n1r} (ms a launch, CUDA events; share of a move: "
+              "1 - variant / base):")
+        for name in names:
+            t = times[(n1r, name)]
+            print(f"  {name:12s} {' / '.join(f'{x:.2f}' for x in t)}  "
+                  f"{100 * (1 - float(np.median(t)) / base):+.1f} %",
+                  flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -376,9 +475,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--groups"]:
         return groups_probe(int(sys.argv[2]) if len(sys.argv) > 2
                             else 3100002031)
+    if sys.argv[1:2] == ["--full-card"]:
+        return full_card_probe(int(sys.argv[2]) if len(sys.argv) > 2
+                               else 3100002031)
     src = sa_kernel.SOURCES[0].read_text()
-    design, knock = variants(src)
-    libs = build({**design, **knock})
+    design, knock = list(DESIGN), list(KNOCK)
+    libs = build(variants(src, design + knock))
     dev = torch.device("cuda", 0)
     sess = SearchSession(chip_smoke.DB586, SessionConfig(maxstart=128,
                                                          device=str(dev)))
@@ -401,15 +503,15 @@ def main() -> int:
             sa_kernel.load_library = real
 
     ref = {r: search("base", *args) for r, args in runs.items()}
-    for name in design:
+    for name in design[1:]:
         for r, args in runs.items():
             s, m = search(name, *args)
             torch.cuda.synchronize()
             if not (torch.equal(s, ref[r][0]) and torch.equal(m, ref[r][1])):
                 raise SystemExit(f"{name} differs from the kernel on {r}")
-    print(f"design variants {list(design)[1:]} == the kernel bitwise "
+    print(f"design variants {design[1:]} == the kernel bitwise "
           f"(scores and maps) on every run", flush=True)
-    names = list(design) + list(knock)
+    names = design + knock
     times = {}
     for name in names + names[::-1]:
         for r, args in runs.items():

@@ -18,6 +18,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from cuda_satabsearch_tpu.core import warmup as jwarmup  # noqa: E402
 from cuda_satabsearch_tpu_torch import session as tsession  # noqa: E402
 from cuda_satabsearch_tpu_torch.core import warmup as twarmup  # noqa: E402
+from cuda_satabsearch_tpu_torch.core.constants import DEFAULTS  # noqa: E402
 from cuda_satabsearch_tpu_torch.core.warmup import (  # noqa: E402
     SHAPE, add_one, warm_backend)
 from cuda_satabsearch_tpu_torch.ops import sa_kernel, warm  # noqa: E402
@@ -74,7 +75,8 @@ def test_warm_backend_is_a_no_op_on_the_cpu_in_both_packages(monkeypatch):
 
 def test_warm_backend_brings_up_three_parts(monkeypatch, capsys):
     """On a card, warm_backend launches the start-up kernel, then
-    ops/warm.warm_search prepares the SA kernel and brings up what a
+    ops/warm.warm_search prepares the SA kernel, decides whether the
+    default schedule screens its Metropolis test, and brings up what a
     search touches around the kernel through the search's own code: the
     pinned staging of a query with its tag, its upload, the side stream
     with its fork and join events (ops/sa_kernel.fork_join), the gather
@@ -131,6 +133,8 @@ def test_warm_backend_brings_up_three_parts(monkeypatch, capsys):
     monkeypatch.setattr(twarmup, "add_one", fake_add_one)
     monkeypatch.setattr(warm, "prepare",
                         lambda d: calls.append(("prepare", d)))
+    monkeypatch.setattr(warm, "screens",
+                        lambda params: calls.append(("screens", params)))
     monkeypatch.setattr(warm, "Staging", fake_staging)
     monkeypatch.setattr(warm, "stage", fake_stage)
     monkeypatch.setattr(warm, "to_file_order", fake_gather)
@@ -139,7 +143,7 @@ def test_warm_backend_brings_up_three_parts(monkeypatch, capsys):
                         lambda d: Stand("current"))
     assert warm_backend(dev) >= 0.0
     assert calls == [("add_one", dev, SHAPE), ("prepare", dev),
-                     ("staging", 1, 8, True), ("stage", [1], [0]),
+                     ("screens", DEFAULTS), ("staging", 1, 8, True), ("stage", [1], [0]),
                      ("upload", dev, True), ("launch_streams", 0),
                      ("record", "fork", "current"),
                      ("wait", "side", "fork"),
